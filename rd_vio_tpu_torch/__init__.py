@@ -7,9 +7,14 @@ parity tests are the only code that imports both.
 What runs so far is the feature-tracking stage of the real-pixel pipeline:
 `models.handler.Handler` -> `models.feature_tracker.FeatureTracker` ->
 `models.image_backend.TorchImageBackend` -> `ops.frontend_loop.ft_loop_step`.
-Its one hand-written kernel is the pyramidal Lucas-Kanade level
-(`csrc/lk_track.cu`, wrapped by `ops.image.klt.lk_level`). The estimator
-stages are not ported yet, so the port does not estimate poses.
+Its hand-written kernels are in `csrc/lk_track.cu`: the pyramidal
+Lucas-Kanade track of a frame pair fused into one launch (all levels,
+forward and reverse, the status rules; wrapped by
+`ops.image.klt.lk_track_fwd_rev`, which the tracking stage calls) and one
+level of it (`ops.image.klt.lk_level`), both over one implementation of the
+maths. The estimator stages are not ported yet, so the port does not
+estimate poses. Entry points compute on the GPU unless the caller names
+another device.
 """
 
 __version__ = "0.1.0"

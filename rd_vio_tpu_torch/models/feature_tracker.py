@@ -163,7 +163,7 @@ class FeatureTracker:
                 detect=detect_due,
                 max_points=int(cfg.feature_tracker_max_keypoint_detection),
                 min_dist=float(cfg.feature_tracker_min_keypoint_distance),
-                level=self.backend.lk_level,
+                lk=self.backend.lk,
                 timer=timer,
             )
         self._dl_state = state

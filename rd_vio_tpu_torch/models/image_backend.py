@@ -4,9 +4,9 @@ Plays the role of the reference's `extra::OpenCvImage` (opencv_image.cpp)
 behind the abstract Image seam: preprocess = CLAHE + pyramid (:156-161),
 detect = GFTT + Poisson spacing + border (:38-73), track = fwd/bwd pyramidal
 LK (:75-154). The counterpart of the JAX package's JaxImageBackend; every
-tensor lives on the backend's `device`, and on a CUDA device the LK levels
-run the hand-written kernel (ops/image/klt.lk_level) unless `lk_level`
-names another level implementation.
+tensor lives on the backend's `device` (the GPU unless the caller names
+another), and on a CUDA device LK is one launch of the hand-written kernel
+(ops/image/klt.lk_track_fwd_rev) unless `lk` names another tracker.
 """
 
 from __future__ import annotations
@@ -60,15 +60,15 @@ class TorchImageBackend:
     # (ops/frontend_loop) can chain frame pairs without host copies
     supports_device_loop = True
 
-    def __init__(self, config, device="cpu", levels: int = 3,
+    def __init__(self, config, device="cuda", levels: int = 3,
                  kp_cap: int = 512, clahe_enabled: bool = True,
-                 lk_level=klt_mod.lk_level):
+                 lk=klt_mod.lk_track_fwd_rev):
         self.config = config
         self.device = torch.device(device)
         self.levels = levels
         self.kp_cap = kp_cap  # fixed tracking batch capacity
         self.clahe_enabled = clahe_enabled
-        self.lk_level = lk_level
+        self.lk = lk  # the tracker; klt.lk_track_fwd_rev_plain for comparisons
 
     # -- preprocessing --------------------------------------------------
     def preprocess(self, img: np.ndarray) -> ProcessedImage:
@@ -126,9 +126,9 @@ class TorchImageBackend:
     def track(self, prev_image: ProcessedImage, next_image: ProcessedImage,
               prev_pix, pred_pix) -> Tuple[np.ndarray, np.ndarray]:
         n = len(prev_pix)
-        tracked, status = fetch(klt_mod.lk_track_fwd_rev(
+        tracked, status = fetch(self.lk(
             prev_image.pyramid, next_image.pyramid,
-            *self._pack(prev_pix, pred_pix), level=self.lk_level,
+            *self._pack(prev_pix, pred_pix),
         ))
         return self._fit(tracked, n), self._fit(status, n)
 
@@ -148,9 +148,9 @@ class TorchImageBackend:
         surviving tracked points. Returns (next_pix (N, 2), status (N,),
         new_pix (M, 2))."""
         n = len(prev_pix)
-        tracked, status = klt_mod.lk_track_fwd_rev(
+        tracked, status = self.lk(
             prev_image.pyramid, next_image.pyramid,
-            *self._pack(prev_pix, pred_pix), level=self.lk_level,
+            *self._pack(prev_pix, pred_pix),
         )
         preset = torch.where(status[:, None], tracked, -1e6)
         pix, val, _ = gftt_mod.detect_gftt(

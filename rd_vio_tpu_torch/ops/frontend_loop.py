@@ -15,8 +15,8 @@ opencv_image.cpp:75-154 LK and :38-73 detection) happens here, in order:
 
   1. IMU-predicted initial flow (frame.cpp:82-93) from the host-supplied
      camera-frame delta rotation,
-  2. pyramidal LK forward + reverse-flow check (ops/image/klt, the CUDA
-     kernel on a GPU),
+  2. pyramidal LK forward + reverse-flow check (ops/image/klt, one launch
+     of the fused CUDA kernel on a GPU),
   3. essential-RANSAC mask + rotation-RANSAC misalignment percentile
      (ops/frontend_step.ft_masks),
   4. track-length-priority Poisson-disk re-filter (frame.cpp:134-161),
@@ -83,7 +83,7 @@ def ft_loop_step(
     detect: bool,  # detection frame?
     max_points: int,
     min_dist: float,
-    level=klt_mod.lk_level,
+    lk=klt_mod.lk_track_fwd_rev,
     timer=None,
 ):
     """One frame step of the device-resident frontend. Returns
@@ -96,10 +96,10 @@ def ft_loop_step(
       life (C,)     updated consecutive-tracked length
       misalign ()   rotation-RANSAC 70th-percentile misalignment (degrees)
 
-    `level` is the LK level implementation (`klt.lk_level`, the CUDA kernel
-    on a GPU, or `klt.lk_level_plain`); `timer` is an optional
-    utils.metrics.DeviceStageTimer that times the stages ft.lk, ft.masks,
-    ft.poisson and ft.gftt.
+    `lk` is the forward + reverse tracker (`klt.lk_track_fwd_rev`, the fused
+    CUDA kernel on a GPU, or `klt.lk_track_fwd_rev_plain`); `timer` is an
+    optional utils.metrics.DeviceStageTimer that times the stages ft.lk,
+    ft.masks, ft.poisson and ft.gftt.
     """
     f32 = torch.float32
     stage = timer.time if timer is not None else (lambda _: contextlib.nullcontext())
@@ -117,8 +117,7 @@ def ft_loop_step(
 
     # 2. pyramidal LK fwd + reverse check
     with stage("ft.lk"):
-        tracked, st = klt_mod.lk_track_fwd_rev(
-            pyr_prev, pyr_next, state.pix, pred_pix, valid, level=level)
+        tracked, st = lk(pyr_prev, pyr_next, state.pix, pred_pix, valid)
 
     # 3. RANSAC masks + pure-rotation misalignment
     with stage("ft.masks"):

@@ -7,23 +7,28 @@ rejection, and the reverse-flow check (backtrack error > 0.5 px => reject).
 LK runs over every image of the pyramid it is given (4 for
 `build_pyramid(levels=3)`).
 
-Two implementations of one pyramid level, with the same signature:
+Two hand-written CUDA kernels (csrc/lk_track.cu, one shared library), each
+with its wrapper, its plain PyTorch version and its launch counter:
 
-- `lk_level_plain`: plain PyTorch, the "windowed" form of the JAX package
-  (ops/image/klt.py `prepare_level` + `_lk_level_windowed`): per keypoint a
-  SW x SW search window, a bilinear template built as `Wy @ S @ Wx^T` with
-  two-nonzero blend matrices, and Gauss-Newton steps on the 2x2 normal
-  matrix. It runs all `iters` iterations with a per-keypoint active mask
-  (a converged keypoint no longer moves, so this equals the early exit)
-  and never synchronises with the host.
-- `lk_level`: the wrapper over the hand-written CUDA kernel
-  (csrc/lk_track.cu), which fuses the window loads, template, gradients,
-  normal matrix and the iterations into one launch per level. On a CPU
-  tensor it runs `lk_level_plain`; on a CUDA tensor it launches the kernel
-  or raises. `launches` counts its kernel launches.
+- `lk_track_fwd_rev`: the whole forward + reverse track of a frame pair in
+  ONE launch (initial guess, all levels coarse to fine, the forward status
+  rules, the reverse track, its rules, the back-track error test). This is
+  what the tracking stage calls. Plain version: `lk_track_fwd_rev_plain`,
+  the composition of `lk_track_pyramid` twice over a level function.
+  Counter: `fwd_rev_launches`.
+- `lk_level`: one pyramid level (window loads, template, gradients, normal
+  matrix, Gauss-Newton iterations). Plain version: `lk_level_plain`, the
+  "windowed" form of the JAX package (ops/image/klt.py `prepare_level` +
+  `_lk_level_windowed`): per keypoint a SW x SW search window, a bilinear
+  template built as `Wy @ S @ Wx^T` with two-nonzero blend matrices, and
+  Gauss-Newton steps on the 2x2 normal matrix. It runs all `iters`
+  iterations with a per-keypoint active mask (a converged keypoint no
+  longer moves, so this equals the early exit) and never synchronises with
+  the host. Counter: `launches`. `lk_level_iters` is the same launch and
+  also returns the iterations each keypoint ran.
 
-The level loop, the guess scaling, the reverse pass and the status rules are
-torch code shared by both (`lk_track_pyramid`, `lk_track_fwd_rev`).
+On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
+launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -50,8 +55,12 @@ PADB = HALF + 2 + MARGIN  # edge padding so in-image windows never clamp
 _SRC = Path(__file__).resolve().parents[2] / "csrc" / "lk_track.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
 
-# kernel launches made by `lk_level` (one per call on CUDA tensors)
+MAX_LEVELS = 8  # pyramid levels the fused kernel's argument struct holds
+
+# kernel launches made by `lk_level` / `lk_level_iters` and by
+# `lk_track_fwd_rev` (one per call on CUDA tensors)
 launches = 0
+fwd_rev_launches = 0
 # seconds the last `load_kernel` spent compiling (0.0 when the .so was there)
 build_seconds = 0.0
 
@@ -138,6 +147,12 @@ def lk_level_plain(img_prev, img_next, pts, guess, valid,
     template centers and guess: (N, 2) initial estimate of the tracked
     position, both [x, y] in PADB-padded coordinates; valid: (N,) bool.
     Returns (tracked (N, 2) in padded coordinates, min_eig (N,))."""
+    return _lk_level_plain_iters(img_prev, img_next, pts, guess, valid,
+                                 iters, eps)[:2]
+
+
+def _lk_level_plain_iters(img_prev, img_next, pts, guess, valid, iters, eps):
+    """`lk_level_plain` plus the iterations each keypoint ran (N,) int32."""
     f32 = torch.float32
     pad = lambda a: torch.nn.functional.pad(  # noqa: E731
         a.to(f32)[None, None], (PADB,) * 4, mode="replicate")[0, 0]
@@ -147,7 +162,9 @@ def lk_level_plain(img_prev, img_next, pts, guess, valid,
     )
     flow = guess - pts
     active = valid.clone()
+    n_iter = torch.zeros(pts.shape[0], dtype=torch.int32, device=pts.device)
     for _ in range(iters):
+        n_iter = n_iter + active
         qx = px + flow[:, 0]
         qy = py + flow[:, 1]
         uy = qy - HALF - oy2.to(f32)
@@ -163,7 +180,7 @@ def lk_level_plain(img_prev, img_next, pts, guess, valid,
         step = torch.stack([dx, dy], dim=-1)
         flow = flow + torch.where(active[:, None], step, 0.0)
         active = active & ((step * step).sum(dim=-1) >= eps * eps)
-    return pts + flow, min_eig
+    return pts + flow, min_eig, n_iter
 
 
 # ---------------------------------------------------------------------------
@@ -179,58 +196,87 @@ def _nvcc() -> str:
     return path
 
 
+class _Pyramids(ctypes.Structure):
+    """`struct Pyramids` of csrc/lk_track.cu: level pointers and sizes."""
+
+    _fields_ = [
+        ("prev", ctypes.c_void_p * MAX_LEVELS),
+        ("next", ctypes.c_void_p * MAX_LEVELS),
+        ("H", ctypes.c_int * MAX_LEVELS),
+        ("W", ctypes.c_int * MAX_LEVELS),
+        ("levels", ctypes.c_int),
+    ]
+
+
+def build_kernel(src: Path = _SRC) -> Path:
+    """Compile `src` for sm_90a unless its shared library is there already.
+
+    The library goes to rd_vio_tpu_torch/_build/ under a name that carries
+    the source's hash, so an edited source is rebuilt; what ptxas says of
+    each kernel (registers, shared memory, spills) is kept beside it."""
+    global build_seconds
+    tag = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    so = BUILD_DIR / f"liblk_track_{tag}.so"
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+               "-Xptxas", "-v", "-o", tmp, str(src)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, so)
+        build_seconds = time.perf_counter() - t0
+        so.with_suffix(".ptxas.txt").write_text(proc.stderr)
+    return so
+
+
+def bind_kernel(so: Path) -> ctypes.CDLL:
+    """Load a library built by `build_kernel` and declare its two entry
+    points (a pointer passed without `argtypes` would be cut to 32 bits)."""
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib = ctypes.CDLL(str(so))
+    lib.rdvio_lk_level.argtypes = [
+        ptr, ptr, i32, i32, ptr, ptr, ptr, i32, i32, f32, ptr, ptr, ptr, ptr]
+    lib.rdvio_lk_level.restype = i32
+    lib.rdvio_lk_fwd_rev.argtypes = [
+        ctypes.POINTER(_Pyramids), ptr, ptr, ptr, i32, i32, f32, f32, f32,
+        ptr, ptr, ptr]
+    lib.rdvio_lk_fwd_rev.restype = i32
+    return lib
+
+
 def load_kernel() -> ctypes.CDLL:
-    """Build (once per source hash) and load csrc/lk_track.cu.
-
-    The shared library goes to rd_vio_tpu_torch/_build/ under a name that
-    carries the source's hash, so an edited source is rebuilt."""
-    global _lib, build_seconds
+    """Build (once per source hash) and load csrc/lk_track.cu."""
+    global _lib
     with _lib_lock:
-        if _lib is not None:
-            return _lib
-        src = _SRC.read_bytes()
-        tag = hashlib.sha256(src).hexdigest()[:12]
-        so = BUILD_DIR / f"liblk_track_{tag}.so"
-        if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            t0 = time.perf_counter()
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                   "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                   "-Xptxas", "-v", "-o", tmp, str(_SRC)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-            os.replace(tmp, so)
-            build_seconds = time.perf_counter() - t0
-            # nvcc -Xptxas -v: registers, shared memory and spills
-            (BUILD_DIR / f"liblk_track_{tag}.ptxas.txt").write_text(proc.stderr)
-        lib = ctypes.CDLL(str(so))
-        fn = lib.rdvio_lk_level
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-        _lib = lib
-        return lib
+        if _lib is None:
+            _lib = bind_kernel(build_kernel())
+        return _lib
 
 
-def _check(name, t, dtype, shape, device):
+def _check(fn, name, t, dtype, shape, device):
+    """Raise unless tensor `t` is what the kernel takes. `name` is a string,
+    or (format, index) for a pyramid level; the message is only built for a
+    tensor that fails (this runs a dozen times per tracked frame)."""
+    if (t.dtype is dtype and t.shape == shape and t.device == device
+            and t.is_contiguous()):
+        return
+    if not isinstance(name, str):
+        name = name[0] % name[1]
     if t.device != device:
-        raise ValueError(f"lk_level: {name} is on {t.device}, expected {device}")
+        raise ValueError(f"{fn}: {name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
-        raise ValueError(f"lk_level: {name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"lk_level: {name} has shape {tuple(t.shape)}, "
+        raise ValueError(f"{fn}: {name} has dtype {t.dtype}, expected {dtype}")
+    if t.shape != shape:
+        raise ValueError(f"{fn}: {name} has shape {tuple(t.shape)}, "
                          f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"lk_level: {name} is not contiguous")
+    raise ValueError(f"{fn}: {name} is not contiguous")
 
 
 def lk_level(img_prev, img_next, pts, guess, valid,
@@ -238,23 +284,38 @@ def lk_level(img_prev, img_next, pts, guess, valid,
     """One pyramid level through the CUDA kernel (same contract as
     `lk_level_plain`). CPU tensors take `lk_level_plain`; CUDA tensors
     launch the kernel or raise; any other device raises."""
+    return _lk_level(img_prev, img_next, pts, guess, valid, iters, eps, False)[:2]
+
+
+def lk_level_iters(img_prev, img_next, pts, guess, valid,
+                   iters: int = 30, eps: float = 0.01):
+    """`lk_level` that also returns the Gauss-Newton iterations each
+    keypoint ran, (N,) int32 (0 for an invalid one): what a measurement
+    needs to count the operations of a call."""
+    return _lk_level(img_prev, img_next, pts, guess, valid, iters, eps, True)
+
+
+def _lk_level(img_prev, img_next, pts, guess, valid, iters, eps, want_iters):
     global launches
     dev = img_prev.device
     if dev.type == "cpu":
-        return lk_level_plain(img_prev, img_next, pts, guess, valid, iters, eps)
+        return _lk_level_plain_iters(img_prev, img_next, pts, guess, valid,
+                                     iters, eps)
     if dev.type != "cuda":
         raise ValueError(f"lk_level: unsupported device {dev}")
     H, W = img_prev.shape
     n = pts.shape[0]
-    _check("img_prev", img_prev, torch.float32, (H, W), dev)
-    _check("img_next", img_next, torch.float32, (H, W), dev)
-    _check("pts", pts, torch.float32, (n, 2), dev)
-    _check("guess", guess, torch.float32, (n, 2), dev)
-    _check("valid", valid, torch.bool, (n,), dev)
+    _check("lk_level", "img_prev", img_prev, torch.float32, (H, W), dev)
+    _check("lk_level", "img_next", img_next, torch.float32, (H, W), dev)
+    _check("lk_level", "pts", pts, torch.float32, (n, 2), dev)
+    _check("lk_level", "guess", guess, torch.float32, (n, 2), dev)
+    _check("lk_level", "valid", valid, torch.bool, (n,), dev)
     tracked = torch.empty((n, 2), dtype=torch.float32, device=dev)
     min_eig = torch.empty((n,), dtype=torch.float32, device=dev)
+    n_iter = (torch.empty((n,), dtype=torch.int32, device=dev)
+              if want_iters else None)
     if n == 0:
-        return tracked, min_eig
+        return tracked, min_eig, n_iter
     lib = load_kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -262,26 +323,31 @@ def lk_level(img_prev, img_next, pts, guess, valid,
             img_prev.data_ptr(), img_next.data_ptr(), H, W,
             pts.data_ptr(), guess.data_ptr(), valid.data_ptr(), n,
             int(iters), eps * eps, tracked.data_ptr(), min_eig.data_ptr(),
-            stream,
+            n_iter.data_ptr() if want_iters else None, stream,
         )
     if rc != 0:
         raise RuntimeError(f"lk_level: CUDA kernel launch failed (error {rc})")
     launches += 1
-    return tracked, min_eig
+    return tracked, min_eig, n_iter
 
 
 # ---------------------------------------------------------------------------
-# pyramid + reverse check (shared by both level implementations)
+# the whole track: pyramid + status rules + reverse check
 # ---------------------------------------------------------------------------
+
+MIN_EIG_THRESH = 1e-4  # conditioning gate on the level-0 template
+EPS = 0.01  # Gauss-Newton step at which a keypoint stops iterating (px)
+
 
 def lk_track_pyramid(pyr_prev, pyr_next, pts_prev, pts_pred, valid,
-                     iters: int = 30, min_eig_thresh: float = 1e-4,
-                     eps: float = 0.01, level=lk_level):
-    """Track pts_prev (N, 2 [x, y]) from pyr_prev to pyr_next.
+                     iters: int = 30, min_eig_thresh: float = MIN_EIG_THRESH,
+                     eps: float = EPS, level=lk_level_plain):
+    """Track pts_prev (N, 2 [x, y]) from pyr_prev to pyr_next, one call of
+    `level` per pyramid level.
 
     pyr_*: list of (H, W) f32 images, fine-to-coarse (from build_pyramid).
     pts_pred: initial guess for the tracked position (IMU-predicted flow).
-    level: `lk_level` (kernel on CUDA) or `lk_level_plain`.
+    level: `lk_level_plain` or `lk_level` (kernel on CUDA).
 
     Returns (pts_next (N, 2), status (N,) bool) with border /
     max-displacement / min-eigenvalue / non-finite rejection."""
@@ -321,12 +387,15 @@ def lk_track_pyramid(pyr_prev, pyr_next, pts_prev, pts_pred, valid,
     return pts_next, status
 
 
-def lk_track_fwd_rev(pyr_prev, pyr_next, pts_prev, pts_pred, valid,
-                     iters: int = 30, max_err: float = 0.5, level=lk_level):
+def lk_track_fwd_rev_plain(pyr_prev, pyr_next, pts_prev, pts_pred, valid,
+                           iters: int = 30, max_err: float = 0.5,
+                           level=lk_level_plain):
     """Forward track + reverse-flow consistency check (reference
-    opencv_image.cpp:130-150): track back from the forward result (guess =
-    pts_prev, valid = forward status) and require the backtrack to land
-    within max_err px."""
+    opencv_image.cpp:130-150), level by level in PyTorch: track back from
+    the forward result (guess = pts_prev, valid = forward status) and
+    require the backtrack to land within max_err px. The plain version of
+    the fused kernel; with `level=lk_level` it is the per-level kernel path
+    (one launch per level and direction)."""
     tracked, status = lk_track_pyramid(
         pyr_prev, pyr_next, pts_prev, pts_pred, valid, iters=iters, level=level
     )
@@ -335,3 +404,58 @@ def lk_track_fwd_rev(pyr_prev, pyr_next, pts_prev, pts_pred, valid,
     )
     err = torch.linalg.vector_norm(back - pts_prev.to(torch.float32), dim=-1)
     return tracked, status & st_b & (err <= max_err)
+
+
+def lk_track_fwd_rev(pyr_prev, pyr_next, pts_prev, pts_pred, valid,
+                     iters: int = 30, max_err: float = 0.5):
+    """Forward + reverse track through the fused CUDA kernel: one launch for
+    all levels, both directions and the status rules (same contract as
+    `lk_track_fwd_rev_plain`). CPU tensors take the plain version; CUDA
+    tensors launch the kernel or raise; any other device raises.
+
+    pyr_*: lists of at most MAX_LEVELS contiguous (H, W) f32 images, fine
+    to coarse, of equal shapes in both pyramids; pts_prev / pts_pred (N, 2)
+    f32 [x, y]; valid (N,) bool. Returns (tracked (N, 2) f32, status (N,)
+    bool)."""
+    global fwd_rev_launches
+    fn = "lk_track_fwd_rev"
+    if len(pyr_prev) != len(pyr_next) or not pyr_prev:
+        raise ValueError(f"{fn}: pyramids of {len(pyr_prev)} and "
+                         f"{len(pyr_next)} levels")
+    dev = pyr_prev[0].device
+    if dev.type == "cpu":
+        return lk_track_fwd_rev_plain(pyr_prev, pyr_next, pts_prev, pts_pred,
+                                      valid, iters, max_err)
+    if dev.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {dev}")
+    levels = len(pyr_prev)
+    if levels > MAX_LEVELS:
+        raise ValueError(f"{fn}: {levels} levels, at most {MAX_LEVELS}")
+    pyr = _Pyramids(levels=levels)
+    for L, (a, b) in enumerate(zip(pyr_prev, pyr_next)):
+        if a.dim() != 2:
+            raise ValueError(f"{fn}: pyr_prev[{L}] is not an (H, W) image")
+        _check(fn, ("pyr_prev[%d]", L), a, torch.float32, a.shape, dev)
+        _check(fn, ("pyr_next[%d]", L), b, torch.float32, a.shape, dev)
+        pyr.prev[L], pyr.next[L] = a.data_ptr(), b.data_ptr()
+        pyr.H[L], pyr.W[L] = a.shape
+    n = pts_prev.shape[0]
+    _check(fn, "pts_prev", pts_prev, torch.float32, (n, 2), dev)
+    _check(fn, "pts_pred", pts_pred, torch.float32, (n, 2), dev)
+    _check(fn, "valid", valid, torch.bool, (n,), dev)
+    tracked = torch.empty((n, 2), dtype=torch.float32, device=dev)
+    status = torch.empty((n,), dtype=torch.bool, device=dev)
+    if n == 0:
+        return tracked, status
+    lib = load_kernel()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.rdvio_lk_fwd_rev(
+            ctypes.byref(pyr), pts_prev.data_ptr(), pts_pred.data_ptr(),
+            valid.data_ptr(), n, int(iters), EPS * EPS, MIN_EIG_THRESH,
+            float(max_err), tracked.data_ptr(), status.data_ptr(), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"{fn}: CUDA kernel launch failed (error {rc})")
+    fwd_rev_launches += 1
+    return tracked, status

@@ -1,14 +1,14 @@
-"""The LK kernel on the card: kernel against plain level, launch counting,
-and the wrapper's input checks. Every test is marked `cuda` and skips where
+"""The LK kernels on the card: the fused forward + reverse kernel and the
+per-level kernel against their plain versions, launch counting, a keypoint
+set that trips every status rule, and the wrappers' input checks. Every test is marked `cuda` and skips where
 there is no CUDA device; this file imports no JAX, so on a GPU machine
 without JAX it runs as
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-chip_smoke.py phase A makes the kernel-vs-plain comparison at the slice's
-full sizes. torch and the port are imported inside the test, so that a
-test runner without a card never loads them; one test per module (see
-test_torch_image).
+chip_smoke.py phase A makes the kernel-vs-plain comparisons at the slice's
+full sizes. torch and the port are imported inside the tests, so that a
+test runner without a card never loads them.
 """
 
 import shutil
@@ -49,27 +49,85 @@ def _pair(dev):
     return pyramid.build_pyramid(a, 3), pyramid.build_pyramid(b, 3), pix, val
 
 
-def _kernel_matches_plain(dev):
+def _agreement(a, b):
+    """(status agreement, agreed tracks, median flow difference in px)."""
+    (tr_a, st_a), (tr_b, st_b) = a, b
+    st_a, st_b = st_a.cpu().numpy(), st_b.cpu().numpy()
+    both = st_a & st_b
+    d = np.linalg.norm(tr_a.cpu().numpy()[both] - tr_b.cpu().numpy()[both], axis=-1)
+    return (st_a == st_b).mean(), both.sum(), np.median(d)
+
+
+@pytest.mark.cuda
+def test_fused_kernel_matches_plain(dev):
     import torch
 
     from rd_vio_tpu_torch.ops.image import klt
 
     pa, pb, pix, val = _pair(dev)
-    before = klt.launches
-    tr_k, st_k = klt.lk_track_fwd_rev(pa, pb, pix, pix, val)
-    tr_p, st_p = klt.lk_track_fwd_rev(pa, pb, pix, pix, val,
-                                      level=klt.lk_level_plain)
+    before = klt.launches, klt.fwd_rev_launches
+    out_k = klt.lk_track_fwd_rev(pa, pb, pix, pix, val)
     torch.cuda.synchronize()
-    assert klt.launches - before == 8  # 4 levels x 2 directions
-    st_k, st_p = st_k.cpu().numpy(), st_p.cpu().numpy()
-    both = st_k & st_p
-    d = np.linalg.norm(tr_k.cpu().numpy()[both] - tr_p.cpu().numpy()[both], axis=-1)
+    assert klt.fwd_rev_launches - before[1] == 1  # one launch per call
+    klt.lk_track_fwd_rev(pa, pb, pix, pix, val)
+    assert klt.fwd_rev_launches - before[1] == 2
+    assert klt.launches == before[0]  # and none of the per-level kernel
+    out_p = klt.lk_track_fwd_rev_plain(pa, pb, pix, pix, val)
     # status agreement >= 0.995, median flow difference <= 1e-3 px
-    assert (st_k == st_p).mean() >= 0.995 and both.sum() > 30
-    assert np.median(d) <= 1e-3
+    agree, n, med = _agreement(out_k, out_p)
+    assert agree >= 0.995 and n > 30
+    assert med <= 1e-3
 
 
-def _wrapper_rejects_what_the_kernel_does_not_take(dev):
+@pytest.mark.cuda
+def test_level_kernel_path_matches_plain(dev):
+    import torch
+
+    from rd_vio_tpu_torch.ops.image import klt
+
+    pa, pb, pix, val = _pair(dev)
+    before = klt.launches, klt.fwd_rev_launches
+    out_k = klt.lk_track_fwd_rev_plain(pa, pb, pix, pix, val, level=klt.lk_level)
+    torch.cuda.synchronize()
+    assert klt.launches - before[0] == 8  # 4 levels x 2 directions
+    assert klt.fwd_rev_launches == before[1]
+    out_p = klt.lk_track_fwd_rev_plain(pa, pb, pix, pix, val)
+    agree, n, med = _agreement(out_k, out_p)
+    assert agree >= 0.995 and n > 30
+    assert med <= 1e-3
+    # the iteration counts of one level: kernel and plain stop together,
+    # but for a step that lands within rounding of the 0.01 px threshold
+    p = (pix + klt.PADB).contiguous()
+    _, _, it_k = klt.lk_level_iters(pa[0], pb[0], p, p, val)
+    _, _, it_p = klt._lk_level_plain_iters(pa[0], pb[0], p, p, val, 30, 0.01)
+    assert it_k.dtype == torch.int32
+    assert ((it_k - it_p).abs() <= 1).float().mean() >= 0.95
+    assert (it_k[~val] == 0).all()
+
+
+@pytest.mark.cuda
+def test_fused_kernel_status_rules(dev):
+    import torch
+
+    from rd_vio_tpu_torch.ops.image import klt, pyramid
+    from rd_vio_tpu_torch.tools import lk_bench
+
+    pa, pb, pix, val = _pair(dev)
+    flat = (90, 150, 130, 190)
+    pa = pyramid.build_pyramid(lk_bench.paint_flat_patch(pa[0], flat), 3)
+    pb = pyramid.build_pyramid(lk_bench.paint_flat_patch(pb[0], flat), 3)
+    pts, pred, valid, kind = lk_bench.edge_case_keypoints(
+        pix[val].cpu().numpy(), N, 240, 320, flat, seed=2, per_kind=6)
+    args = (pa, pb, *(torch.from_numpy(x).to(dev) for x in (pts, pred, valid)))
+    _, st_k = klt.lk_track_fwd_rev(*args)
+    _, st_p = klt.lk_track_fwd_rev_plain(*args)
+    st_k, st_p = st_k.cpu().numpy(), st_p.cpu().numpy()
+    np.testing.assert_array_equal(st_k, st_p)  # exactly equal
+    assert not st_k[kind >= 0].any() and st_k[kind < 0].sum() > 20
+
+
+@pytest.mark.cuda
+def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     from rd_vio_tpu_torch.ops.image import klt
 
     pa, pb, pix, val = _pair(dev)
@@ -87,8 +145,20 @@ def _wrapper_rejects_what_the_kernel_does_not_take(dev):
         with pytest.raises(ValueError):
             klt.lk_level(*a)
 
-
-@pytest.mark.cuda
-def test_lk_kernel_on_card(dev):
-    _kernel_matches_plain(dev)
-    _wrapper_rejects_what_the_kernel_does_not_take(dev)
+    wide = pa[1].repeat(1, 2)[:, :pa[1].shape[1]]  # right shape, strided
+    assert wide.shape == pa[1].shape and not wide.is_contiguous()
+    bad = [
+        (pa, pb, pix.cpu(), pix, val),  # device
+        (pa, pb, pix.double(), pix, val),  # dtype of the keypoints
+        ([pa[0].double()] + pa[1:], pb, pix, pix, val),  # dtype of a level
+        ([pa[0], wide] + pa[2:], pb, pix, pix, val),  # non-contiguous level
+        (pa + pa + pa[:1], pb + pb + pb[:1], pix, pix, val),  # 9 levels
+        (pa, pb[:3], pix, pix, val),  # unequal pyramids: level count
+        (pa, pb[:3] + [pb[2]], pix, pix, val),  # unequal pyramids: a shape
+        (pa, pb, pix, pix, val[:-1]),  # shape
+    ]
+    before = klt.fwd_rev_launches
+    for a in bad:
+        with pytest.raises(ValueError):
+            klt.lk_track_fwd_rev(*a)
+    assert klt.fwd_rev_launches == before

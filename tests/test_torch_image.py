@@ -7,14 +7,12 @@ beside each comparison.
 This module also holds what every tests/test_torch_*.py module shares:
 `child`, which runs a module's checks in a spawned process, and
 `rendered_frames`. Only that child imports torch and the port, and only it
-compiles the checks' JAX programs. Each of these modules holds ONE test:
-pytest-xdist's loadfile scheduler hands out modules in order of their test
-count, so one-test modules are handed out after every JAX test module, and
-the JAX modules run on the same workers, in the same order, as without the
-port's tests. jaxlib's CPU backend crashes intermittently in long,
-compile-heavy processes (tests/conftest.py); with the port's tests spread
-over the workers, tests/test_async_keyframe.py was seen to crash in
-jaxlib's executable serialization.
+compiles the checks' JAX programs, so the test runner's own processes stay
+as they are without the port: jaxlib's CPU backend crashes intermittently
+in long, compile-heavy processes (tests/conftest.py), and with the port's
+checks running inside the workers, tests/test_async_keyframe.py was seen to
+crash in jaxlib's executable serialization. For the same reason these
+modules hold few tests each, most of them one.
 """
 
 import functools

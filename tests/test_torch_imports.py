@@ -1,8 +1,9 @@
 """rd_vio_tpu_torch (and chip_smoke.py) import neither JAX nor the JAX
 package, and every module imports on a machine with no nvcc and no CUDA;
 `convert` carries the JAX side's config into the port field by field, and
-the port's checks run in the child process of test_torch_image alone. One
-test per module: see test_torch_image."""
+the port's checks run in the child process of test_torch_image alone. The
+port's entry points compute on the GPU unless the caller names another
+device."""
 
 import subprocess
 import sys
@@ -14,7 +15,17 @@ from rd_vio_tpu.config import Config as ConfigJ
 from tests.test_torch_image import IN_CHILD, child  # noqa: F401
 
 if IN_CHILD:  # the port loads only where the checks run (test_torch_image)
+    import inspect
+
+    import torch
+
     from rd_vio_tpu_torch import convert
+    from rd_vio_tpu_torch.config import Config as ConfigT
+    from rd_vio_tpu_torch.models import builders as builders_t
+    from rd_vio_tpu_torch.models.feature_tracker import FeatureTracker
+    from rd_vio_tpu_torch.models.image_backend import TorchImageBackend
+    from rd_vio_tpu_torch.ops import frontend_loop, ransac
+    from rd_vio_tpu_torch.ops.image import klt
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -61,8 +72,32 @@ def _check_config_converts():
     assert ct.camera_intrinsic is not cj.camera_intrinsic
 
 
+def _check_entry_points_default_to_the_card():
+    # a caller that names no device gets the GPU (and, without one, an error
+    # at the first upload), never a silent CPU run; where there is no
+    # default the device is a required argument
+    cfg = ConfigT()
+    backend = TorchImageBackend(cfg)
+    assert backend.device.type == "cuda"
+    assert backend.lk is klt.lk_track_fwd_rev  # the fused kernel's wrapper
+    for fn in (ransac.GumbelSource.__init__, frontend_loop.init_state):
+        assert inspect.signature(fn).parameters["device"].default is inspect.Parameter.empty
+    assert inspect.signature(frontend_loop.ft_loop_step).parameters["lk"].default \
+        is klt.lk_track_fwd_rev
+    # the tracker follows its backend's device unless told otherwise
+    on_cpu = TorchImageBackend(cfg, "cpu")
+    ft = FeatureTracker(cfg, builders_t.CalibArrays.from_config(cfg),
+                        builders_t.Caps(), on_cpu)
+    assert ft.device == torch.device("cpu") == on_cpu.device
+    assert ft._K_dev.device.type == "cpu"
+
+
 def _in_child():
     return IN_CHILD, "torch" in sys.modules
+
+
+def test_entry_points_default_to_the_card(child):
+    child(_check_entry_points_default_to_the_card)
 
 
 def test_port_imports_without_jax(child):

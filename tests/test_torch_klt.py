@@ -7,7 +7,13 @@ The port's plain level (`klt.lk_level_plain`, which the kernel wrapper
 reverse tracker. Tolerances: status agreement >= 0.995 and median flow
 difference <= 1e-4 px on agreed tracks (f32 matmul and sum order).
 
-The CUDA kernel itself needs a card: tests/test_torch_cuda.py (marked
+`klt.lk_track_fwd_rev_plain`, the plain version of the fused kernel, is also
+held against the JAX `klt.lk_track_fwd_rev` on a keypoint set built to trip
+every status rule (tools/lk_bench.edge_case_keypoints): status exactly
+equal, tracked positions within 1e-3 px where both track. The wrapper
+`klt.lk_track_fwd_rev` on CPU tensors is that plain version bit for bit.
+
+The CUDA kernels themselves need a card: tests/test_torch_cuda.py (marked
 `cuda`, skipped without one) and chip_smoke.py phase A compare it with the
 plain level there.
 """
@@ -29,6 +35,7 @@ if IN_CHILD:  # the port loads only where the checks run (test_torch_image)
 
     from rd_vio_tpu_torch.ops.image import klt as klt_t
     from rd_vio_tpu_torch.ops.image import pyramid as pyr_t
+    from rd_vio_tpu_torch.tools import lk_bench
 
 N = 64
 
@@ -128,6 +135,88 @@ def _check_wrapper_cpu():
     assert klt_t.launches == before
     with pytest.raises(ValueError):
         klt_t.lk_level(*[x.to("meta") for x in args])
+
+
+FLAT = (90, 150, 130, 190)  # y0, y1, x0, x1 of the painted flat patch
+
+
+@functools.cache
+def _edge_case_inputs():
+    """The rendered 320x240 pair with a flat patch painted into both frames,
+    both pyramids from the JAX package (so the two trackers see the same
+    pixels), and N keypoints: 6 of each edge-case kind among GFTT corners."""
+    a, b = _pair()[:2]
+    a = lk_bench.paint_flat_patch(a, FLAT)
+    b = lk_bench.paint_flat_patch(b, FLAT)
+    pix, val, _ = gftt_j.detect_gftt(
+        jnp.asarray(a), jnp.zeros((1, 2), jnp.float32), jnp.zeros(1, bool),
+        max_points=N, min_dist=10.0)
+    good = np.asarray(pix)[np.asarray(val)]
+    pts, pred, valid, kind = lk_bench.edge_case_keypoints(
+        good, N, 240, 320, FLAT, seed=2, per_kind=6)
+    pj_a = pyr_j.build_pyramid(jnp.asarray(a), 3)
+    pj_b = pyr_j.build_pyramid(jnp.asarray(b), 3)
+    return pj_a, pj_b, pts, pred, valid, kind
+
+
+def _torch_pyramid(pyr):
+    return [torch.from_numpy(np.array(x)) for x in pyr]
+
+
+def _check_fwd_rev_edge_cases():
+    pj_a, pj_b, pts, pred, valid, kind = _edge_case_inputs()
+    assert len(pj_a) == 4 and len(pts) == 64
+    tr_j, st_j = klt_j.lk_track_fwd_rev(
+        pj_a, pj_b, jnp.asarray(pts), jnp.asarray(pred), jnp.asarray(valid))
+    tr_t, st_t = klt_t.lk_track_fwd_rev_plain(
+        _torch_pyramid(pj_a), _torch_pyramid(pj_b), torch.from_numpy(pts),
+        torch.from_numpy(pred), torch.from_numpy(valid))
+    st_j, st_t = np.asarray(st_j), st_t.numpy()
+    # tolerance 1: the status is EXACTLY equal on every slot
+    np.testing.assert_array_equal(st_t, st_j)
+    # every edge case is rejected, and most ordinary points are tracked
+    assert not st_t[kind >= 0].any()
+    assert st_t[kind < 0].sum() > 20
+    # tolerance 2: tracked positions within 1e-3 px where both track (f32
+    # matmul and sum order differ between the two libraries)
+    d = np.linalg.norm(np.asarray(tr_j)[st_t] - tr_t.numpy()[st_t], axis=-1)
+    assert d.max() <= 1e-3, d.max()
+
+
+def _check_fwd_rev_wrapper_cpu():
+    # on CPU tensors the fused wrapper is its plain version bit for bit and
+    # launches nothing; a pyramid the kernel's struct cannot hold, unequal
+    # pyramids and an unsupported device raise
+    pj_a, pj_b, pts, pred, valid, _ = _edge_case_inputs()
+    args = (_torch_pyramid(pj_a), _torch_pyramid(pj_b), torch.from_numpy(pts),
+            torch.from_numpy(pred), torch.from_numpy(valid))
+    before = klt_t.launches, klt_t.fwd_rev_launches
+    tr1, st1 = klt_t.lk_track_fwd_rev(*args)
+    tr2, st2 = klt_t.lk_track_fwd_rev_plain(*args)
+    assert torch.equal(st1, st2)
+    assert torch.equal(tr1.nan_to_num(nan=-7.0), tr2.nan_to_num(nan=-7.0))
+    assert tr1.dtype == torch.float32 and st1.dtype == torch.bool
+    assert (klt_t.launches, klt_t.fwd_rev_launches) == before
+    with pytest.raises(ValueError):
+        klt_t.lk_track_fwd_rev(args[0], args[1][:3], *args[2:])
+    with pytest.raises(ValueError):
+        klt_t.lk_track_fwd_rev(*[[x.to("meta") for x in p] for p in args[:2]],
+                               *[x.to("meta") for x in args[2:]])
+    # the iteration count of the level wrapper: 0 for invalid slots, at
+    # least 1 and at most `iters` for valid ones
+    a, b, p, g, v = _level_inputs(0)
+    _, _, n_it = klt_t.lk_level_iters(*[torch.from_numpy(x) for x in (a, b, p, g, v)])
+    assert n_it.dtype == torch.int32
+    assert (n_it[~torch.from_numpy(v)] == 0).all()
+    assert (n_it[torch.from_numpy(v)] >= 1).all() and n_it.max() <= 30
+
+
+def test_fwd_rev_plain_matches_jax_on_edge_cases(child):
+    child(_check_fwd_rev_edge_cases)
+
+
+def test_fwd_rev_wrapper_on_cpu_is_plain(child):
+    child(_check_fwd_rev_wrapper_cpu)
 
 
 def test_lk_matches_jax(child):
