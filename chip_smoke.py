@@ -25,11 +25,30 @@ reverse track and one level of it) from the checkout, then:
   C. the first 10 frames of B again with the plain LK tracker on the card;
      keypoint slots agree with B on >= 98%;
   D. the same 10 frames through the per-level kernel (8 launches per
-     tracked frame, counted), with the same agreement.
+     tracked frame, counted), with the same agreement;
+  E. the estimator: the window VI-BA problem of B's sequence at the main
+     path's shapes (bench.py's Caps: W=15 frames, L=256 landmarks, O=2560
+     observations; frames 10-24), started from test_ba.py's perturbation
+     with frame 0 fixed, solved by `solve_ba` (30 LM iterations at most) in
+     f64 and, cast, in f32; then `marginalize_frame0` in f64 on the f64
+     solution. Checks: in f64 and f32 the cost falls >= 1e3 x and positions
+     land within 5e-3 m of the truth; every tensor is finite; the prior's
+     information S^T S is symmetric positive semi-definite; the card's f64
+     solve equals the port's CPU solve of the same inputs (accepted steps
+     within 1, positions within 1e-6 m). Prints iterations, costs, device ms per
+     solve and per iteration (CUDA events, median of 5 after a warm-up), ms
+     per call with the host, host syncs per call, the device spans of
+     build_normal_system / solve_normal_system, kernels per solve
+     (torch.profiler), and each part of an f64 iteration timed alone; and
+     a two-view triangulation of the tracks of slots 0 and 1 against the
+     true points (within 1e-6 m), with its host syncs.
 
 Exits non-zero, with no result line, without a CUDA device or when any
-check fails. The line before the last lists both kernels with their launch
-counts, errors, times and bounds; the last line of stdout is
+check fails. Before the last line come an `{"estimator": ...}` line with
+phase E's numbers and the `{"kernels": ...}` line with both LK kernels'
+launch counts, errors, times and bounds (the estimator adds no kernel: it
+is plain PyTorch, as it is XLA in the JAX package); the last line of stdout
+is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -37,9 +56,11 @@ from __future__ import annotations
 
 import functools
 import json
+import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -47,10 +68,13 @@ import torch
 from rd_vio_tpu_torch.config import Config
 from rd_vio_tpu_torch.datasets import synthetic
 from rd_vio_tpu_torch.datasets.renderer import SequenceRenderer
+from rd_vio_tpu_torch.datasets.synthetic_problems import build_window_problem, perturbed_start
+from rd_vio_tpu_torch.estimation import ba, marginalization
 from rd_vio_tpu_torch.models import builders
 from rd_vio_tpu_torch.models.feature_tracker import FeatureTracker
 from rd_vio_tpu_torch.models.handler import Handler
 from rd_vio_tpu_torch.models.image_backend import TorchImageBackend
+from rd_vio_tpu_torch.ops import lie, triangulate
 from rd_vio_tpu_torch.ops.image import klt
 from rd_vio_tpu_torch.ops.image import pyramid as pyr_mod
 from rd_vio_tpu_torch.tools import lk_bench
@@ -391,6 +415,213 @@ def phase_d(cfg, seq, frames, dev, sink_b):
     return launches
 
 
+# phase E: bench.py's Caps (W, L, O) and the reference profile's budget
+E_W, E_L, E_O, E_ITERS = 15, 256, 2560, 30
+H100_F64_FLOP_PER_S = 67e12  # f64 on the tensor cores, NVIDIA H100 SXM data sheet
+
+
+def count_syncs(fn):
+    """(fn(), the host syncs it made) as torch.cuda's sync debug mode
+    reports them (each a warning)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchronizing CUDA operation" in str(w.message) for w in caught)
+
+
+def time_call(fn, reps=5):
+    """fn() once to warm up, then reps times: (median device ms between two
+    CUDA events around the call, median ms of the call with the host and a
+    final synchronise)."""
+    fn()
+    torch.cuda.synchronize()
+    dev_ms, host_ms = [], []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        dev_ms.append(start.elapsed_time(end))
+    return statistics.median(dev_ms), statistics.median(host_ms)
+
+
+def profile_call(fn):
+    """(kernels the device ran, their summed ms) in one fn() under
+    torch.profiler, tracing the device only (host-side tracing of the
+    ~10^5 operator calls of a solve costs minutes to post-process)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels, kernel_us = 0, 0.0
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            kernels += e.count
+            kernel_us += getattr(e, "self_device_time_total",
+                                 getattr(e, "self_cuda_time_total", 0.0))
+    return kernels, kernel_us * 1e-3
+
+
+def build_parts(states, inv_depth, pb):
+    """Each part of one `build_normal_system` call, timed alone: {part:
+    (ms per call with the host, kernels run)}; printed."""
+    parts = {
+        "linearize_reprojection": lambda: ba.linearize_reprojection(states, inv_depth, pb),
+        "linearize_reproj_prior": lambda: ba.linearize_reproj_prior(states, pb),
+        "linearize_imu": lambda: ba.linearize_imu(states, pb),
+        "linearize_imu_prior": lambda: ba.linearize_imu_prior(states, pb),
+        "linearize_rot": lambda: ba.linearize_rot(states, pb),
+        "linearize_prior": lambda: ba.linearize_prior(states, pb),
+        "build_normal_system": lambda: ba.build_normal_system(states, inv_depth, pb),
+        "compute_cost": lambda: ba.compute_cost(states, inv_depth, pb),
+    }
+    out = {}
+    for name, fn in parts.items():
+        out[name] = (time_call(fn)[1], profile_call(fn)[0])
+    print("[E] f64 parts of an LM iteration, timed alone (ms per call with the host, "
+          "kernels): " + ", ".join(f"{k} {ms:.2f} ({n})" for k, (ms, n)
+                                           in out.items()))
+    return out
+
+
+def to_cpu(tree):
+    return torch.utils._pytree.tree_map(lambda a: a.cpu(), tree)
+
+
+def phase_e(seq, dev):
+    """The window VI-BA solve and frame-0 marginalization at the main path's
+    shapes on the card; returns the `estimator` record."""
+    t0 = time.perf_counter()
+    gt, invd_gt, pb, n_lm, n_obs = build_window_problem(
+        seq, f0=10, W=E_W, L_max=E_L, O_max=E_O, device=dev)
+    s0, invd0, pb = perturbed_start(gt, invd_gt, pb)
+    torch.cuda.synchronize()
+    print(f"[E] window problem W={E_W} L={E_L} O={E_O} on the card: {n_lm} tracks, "
+          f"{n_obs} observations, D={E_W * 15} camera columns, built in "
+          f"{time.perf_counter() - t0:.2f} s; frame 0 fixed, test_ba.py's perturbation")
+    check(n_lm > 100 and n_obs > 1000, "phase E: the window holds too few tracks")
+    rec = {"W": E_W, "L": E_L, "O": E_O, "tracks": n_lm, "observations": n_obs}
+
+    for name, dtype in (("f64", torch.float64), ("f32", torch.float32)):
+        args = builders.cast_floats((s0, invd0, pb), dtype)
+        solve = lambda args=args: ba.solve_ba(*args, max_iterations=E_ITERS)  # noqa: E731
+        dev_ms, host_ms = time_call(solve)  # its first call warms up
+        timer = DeviceStageTimer()  # records events only: no sync of its own
+        res, syncs = count_syncs(
+            lambda: ba.solve_ba(*args, max_iterations=E_ITERS, timer=timer))
+        spans = timer.stats()
+        steps = spans["ba.build_normal_system"]["n"]
+        kernels, kernel_ms = profile_call(solve)
+        acc = int(res.iterations)
+        c0, c1 = float(res.initial_cost), float(res.cost)
+        p_err = float((res.states.p - gt.p.to(dtype)).abs().max())
+        finite = all(bool(torch.isfinite(a).all()) for a in (*res.states, res.inv_depth,
+                                                             res.cost))
+        print(f"[E] solve_ba {name}: {acc} accepted of {steps} LM iterations; cost "
+              f"{c0:.6e} -> {c1:.6e} ({c0 / max(c1, 1e-300):.3e} x); max position "
+              f"error {p_err:.3e} m; all finite {finite}")
+        print(f"[E] solve_ba {name}: device ms per solve {dev_ms:.3f} (CUDA events, "
+              f"median of 5 after a warm-up), per LM iteration {dev_ms / steps:.3f}; ms "
+              f"per call with the host {host_ms:.3f}; host syncs per solve {syncs}; "
+              f"kernels per solve {kernels} ({kernels / steps:.0f} per iteration), "
+              f"summed kernel time {kernel_ms:.3f} ms (busy share "
+              f"{kernel_ms / dev_ms:.3f})")
+        print(f"[E] solve_ba {name} device spans per iteration: " + ", ".join(
+            f"{k.split('.', 1)[1]} {v['mean_ms']:.3f} ms (n={v['n']})"
+            for k, v in spans.items()))
+        check(finite, f"phase E: non-finite {name} solve")
+        rec[name] = {"accepted": acc, "iterations": steps, "initial_cost": c0, "cost": c1,
+                     "max_position_error_m": p_err, "device_ms": dev_ms,
+                     "device_ms_per_iteration": dev_ms / steps, "host_ms": host_ms,
+                     "host_syncs": syncs, "kernels": kernels,
+                     "kernel_ms": kernel_ms,
+                     "spans_ms": {k: v["mean_ms"] for k, v in spans.items()}}
+        check(c1 <= 1e-3 * c0, f"phase E: {name} cost fell only {c0 / c1:.3e} x")
+        check(p_err <= 5e-3, f"phase E: {name} position error {p_err:.3e} m > 5e-3")
+        if dtype == torch.float64:
+            res64 = res
+            rec["f64_parts"] = build_parts(res.states, res.inv_depth, args[2])
+
+    # the card against the port's CPU solve of the same inputs
+    t0 = time.perf_counter()
+    ref = ba.solve_ba(*to_cpu((s0, invd0, pb)), max_iterations=E_ITERS)
+    dp = float((res64.states.p.cpu() - ref.states.p).abs().max())
+    dit = int(res64.iterations) - int(ref.iterations)
+    print(f"[E] f64 card against CPU (same inputs; CPU solve {time.perf_counter() - t0:.1f} "
+          f"s): accepted steps {int(res64.iterations)} vs {int(ref.iterations)}, max "
+          f"position difference {dp:.3e} m, costs {float(res64.cost):.6e} vs "
+          f"{float(ref.cost):.6e}")
+    check(abs(dit) <= 1, "phase E: card and CPU differ by more than one accepted step")
+    check(dp <= 1e-6, f"phase E: card and CPU positions differ by {dp:.3e} m > 1e-6")
+    rec["f64_card_vs_cpu"] = {"accepted_diff": dit, "max_position_diff_m": dp}
+
+    # frame-0 marginalization on the f64 solution: the factors that touch
+    # slot 0 (tracks anchored there, the first IMU factor) and the prior
+    rf, imu = pb.reproj, pb.imu
+    pb_m = pb._replace(reproj=rf._replace(valid=rf.valid & (rf.ref == 0)),
+                       imu=imu._replace(valid=imu.valid & (imu.i == 0)))
+    marg = lambda: marginalization.marginalize_frame0(  # noqa: E731
+        res64.states, res64.inv_depth, pb_m)
+    m_dev, m_host = time_call(marg)  # its first call warms up
+    prior, m_syncs = count_syncs(marg)
+    S, iv = prior.sqrt_inv_cov, prior.infovec
+    info = S.mT @ S
+    asym = float((info - info.mT).abs().max())
+    eig = torch.linalg.eigvalsh(info)
+    scale = float(eig.abs().max())
+    ok = (bool(torch.isfinite(S).all()) and bool(torch.isfinite(iv).all())
+          and asym <= 1e-12 * scale and float(eig.min()) >= -1e-9 * scale)
+    ref_m = marginalization.marginalize_frame0(ref.states, ref.inv_depth, to_cpu(pb_m))
+    info_ref = ref_m.sqrt_inv_cov.mT @ ref_m.sqrt_inv_cov
+    d_info = float((info.cpu() - info_ref).abs().max()) / float(info_ref.abs().max())
+    print(f"[E] marginalize_frame0 f64: device ms {m_dev:.3f} (median of 5), ms per call "
+          f"with the host {m_host:.3f}, host syncs {m_syncs}; S^T S: max asymmetry "
+          f"{asym:.3e}, eigenvalues {float(eig.min()):.3e} .. {scale:.3e}, rank "
+          f"{int((eig > 1e-8 * scale).sum())} of {E_W * 15}; against the CPU's "
+          f"marginalization of the CPU solution: {d_info:.3e} relative")
+    check(ok, "phase E: the marginalization prior is not finite, symmetric and PSD")
+    check(d_info <= 1e-6, f"phase E: card and CPU priors differ by {d_info:.3e}")
+    rec["marginalize_frame0"] = {"device_ms": m_dev, "host_ms": m_host,
+                                 "host_syncs": m_syncs, "info_vs_cpu": d_info}
+    # two-view triangulation (one batched eigh) of the tracks that slot 0
+    # anchors and slot 1 sees, from the true poses (identity extrinsics:
+    # the camera is the body), against the true points
+    sel = ((rf.ref == 0) & (rf.tgt == 1) & rf.valid).nonzero()[:, 0]
+    q_cw = lie.quat_conj(gt.q[:2])
+    p_cw = -lie.quat_rotate(q_cw, gt.p[:2])
+    (pts, tri_ok), t_syncs = count_syncs(lambda: triangulate.triangulate_two_view(
+        rf.z_ref[sel], rf.z_tgt[sel], q_cw[0], p_cw[0], q_cw[1], p_cw[1]))
+    truth = lie.quat_rotate(gt.q[0], rf.z_ref[sel] / invd_gt[rf.lm[sel].long(), None]) + gt.p[0]
+    t_err = float((pts - truth).abs().max())
+    print(f"[E] triangulate_two_view f64 of {len(sel)} tracks (slots 0 and 1): max error "
+          f"{t_err:.3e} m against the true points, all ok {bool(tri_ok.all())}, host "
+          f"syncs {t_syncs}")
+    check(len(sel) >= 20 and bool(tri_ok.all()) and t_err <= 1e-6,
+          "phase E: two-view triangulation")
+    rec["triangulate_two_view"] = {"tracks": len(sel), "max_error_m": t_err,
+                                   "host_syncs": t_syncs}
+
+    # what the arithmetic needs per LM iteration: J_all^T J_all (2 R D^2
+    # operations, f64) and reading J_all once
+    rows = 2 * E_O + 2 + 15 * (E_W - 1) + 15 + 2 + 15 * E_W
+    flop, nbytes = 2 * rows * (15 * E_W) ** 2, rows * 15 * E_W * 8
+    t_min = max(flop / H100_F64_FLOP_PER_S, nbytes / H100_BYTES_PER_S) * 1e3
+    print(f"[E] J^T J per LM iteration: {rows} rows x {15 * E_W} columns, {flop / 1e9:.3f} "
+          f"GFLOP, {nbytes / 1e6:.1f} MB: >= {t_min * 1e3:.2f} us on this card, against "
+          f"{rec['f64']['device_ms_per_iteration']:.3f} ms per f64 iteration")
+    rec["normal_matmul_bound_ms"] = t_min
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -423,11 +654,24 @@ def main():
           f"{time.perf_counter() - t_r:.1f} s")
     cfg = make_config(rend.K)
 
-    fused, level = phase_a(cfg, frames, dev)
-    sink_b, fused["launches"], _ = phase_b(cfg, seq, frames, dev)
-    phase_c(cfg, seq, frames, dev, sink_b)
-    level["launches"] = phase_d(cfg, seq, frames, dev, sink_b)
+    clock = [time.perf_counter()]
 
+    def lap(phase):
+        clock.append(time.perf_counter())
+        print(f"[{phase}] phase took {clock[-1] - clock[-2]:.1f} s")
+
+    fused, level = phase_a(cfg, frames, dev)
+    lap("A")
+    sink_b, fused["launches"], _ = phase_b(cfg, seq, frames, dev)
+    lap("B")
+    phase_c(cfg, seq, frames, dev, sink_b)
+    lap("C")
+    level["launches"] = phase_d(cfg, seq, frames, dev, sink_b)
+    lap("D")
+    estimator = phase_e(seq, dev)
+    lap("E")
+
+    print(json.dumps({"estimator": estimator}))
     print(json.dumps({"kernels": [fused, level]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

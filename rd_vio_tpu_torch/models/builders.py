@@ -1,7 +1,8 @@
 """Host pieces of the JAX package's models/builders.py that the feature
 tracker needs: the static capacities (`Caps`), the calibration constants
 (`CalibArrays`, NumPy only) and the mean-only IMU state prediction
-(`predict_frame`, `propagate_chain`).
+(`predict_frame`, `propagate_chain`), and `cast_floats`, which puts a
+window problem in the solver's dtype.
 
 The BA-problem assembly and the estimator device programs of that module are
 not ported yet.
@@ -13,6 +14,8 @@ import dataclasses
 from typing import List
 
 import numpy as np
+import torch
+from torch.utils._pytree import tree_map
 
 from rd_vio_tpu_torch.models.map import Frame
 from rd_vio_tpu_torch.ops import preintegration_np as pre_np
@@ -97,3 +100,10 @@ def propagate_chain(frames: List[Frame], start: Frame, calib: CalibArrays, cap: 
         )
         f.bg, f.ba = prev.bg.copy(), prev.ba.copy()
         prev = f
+
+
+def cast_floats(tree, dtype):
+    """Every floating-point tensor of a (nested NamedTuple) tree as `dtype`;
+    index and mask tensors stay as they are."""
+    return tree_map(lambda a: a.to(dtype) if isinstance(a, torch.Tensor)
+                    and a.is_floating_point() else a, tree)

@@ -1,8 +1,9 @@
 """The LK kernels on the card: the fused forward + reverse kernel and the
 per-level kernel against their plain versions, launch counting, a keypoint
-set that trips every status rule, and the wrappers' input checks. Every test is marked `cuda` and skips where
-there is no CUDA device; this file imports no JAX, so on a GPU machine
-without JAX it runs as
+set that trips every status rule, and the wrappers' input checks; and the
+window VI-BA solve on the card against the same solve on the CPU. Every
+test is marked `cuda` and skips where there is no CUDA device; this file
+imports no JAX, so on a GPU machine without JAX it runs as
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
@@ -162,3 +163,34 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         with pytest.raises(ValueError):
             klt.lk_track_fwd_rev(*a)
     assert klt.fwd_rev_launches == before
+
+
+@pytest.mark.cuda
+def test_window_solve_on_the_card_matches_the_cpu(dev):
+    # the f64 LM solve of the entry point's window (W=6, L=64, O=256) from
+    # test_ba.py's perturbation: the card takes the same accepted steps as
+    # the CPU, or one more or fewer (index_add_ adds with atomics, cuBLAS in
+    # another order), and lands within 1e-6 m of it and 5e-3 m of the truth
+    import torch
+
+    from rd_vio_tpu_torch.datasets import synthetic
+    from rd_vio_tpu_torch.datasets.synthetic_problems import (
+        build_window_problem, perturbed_start)
+    from rd_vio_tpu_torch.estimation import ba
+
+    seq = synthetic.generate(duration=4.0, n_landmarks=300, max_keypoints=40)
+    out = {}
+    for d in ("cpu", dev):
+        gt, invd, pb, _, _ = build_window_problem(seq, f0=10, W=6, L_max=64,
+                                                  O_max=256, device=d)
+        res = ba.solve_ba(*perturbed_start(gt, invd, pb), max_iterations=30)
+        out[str(d)] = (gt, res)
+    gt, cpu = out["cpu"]
+    card = out[str(dev)][1]
+    assert card.states.p.device.type == "cuda"
+    assert abs(int(card.iterations) - int(cpu.iterations)) <= 1
+    assert float(card.cost) < 1e-3 * float(card.initial_cost)
+    p_card = card.states.p.cpu()
+    assert torch.isfinite(p_card).all()
+    assert (p_card - cpu.states.p).abs().max() <= 1e-6
+    assert (p_card - gt.p).abs().max() <= 5e-3

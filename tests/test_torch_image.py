@@ -54,13 +54,30 @@ if IN_CHILD:
     torch.set_num_threads(1)
 
 
+CHILD_TIMEOUT_S = 600
+
+
 @pytest.fixture(scope="module")
 def child():
     """call(fn, *args): fn(*args) in this module's spawned child process.
-    An assertion that fails there fails the calling test."""
+    An assertion that fails there fails the calling test. A call that takes
+    longer than CHILD_TIMEOUT_S kills the child and fails the test, so a
+    hung child costs one test, not the whole run's time limit."""
     ctx = multiprocessing.get_context("spawn")
-    with ProcessPoolExecutor(max_workers=1, mp_context=ctx) as pool:
-        yield lambda fn, *args: pool.submit(fn, *args).result()
+    pool = ProcessPoolExecutor(max_workers=1, mp_context=ctx)
+
+    def call(fn, *args):
+        try:
+            return pool.submit(fn, *args).result(timeout=CHILD_TIMEOUT_S)
+        except TimeoutError:
+            for proc in list(pool._processes.values()):
+                proc.kill()
+            raise
+
+    try:
+        yield call
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
 
 
 def rendered_frames(n, size=(320, 240), seed=648):

@@ -21,10 +21,12 @@ if IN_CHILD:  # the port loads only where the checks run (test_torch_image)
 
     from rd_vio_tpu_torch import convert
     from rd_vio_tpu_torch.config import Config as ConfigT
+    from rd_vio_tpu_torch.datasets import synthetic_problems
+    from rd_vio_tpu_torch.estimation import factors, state
     from rd_vio_tpu_torch.models import builders as builders_t
     from rd_vio_tpu_torch.models.feature_tracker import FeatureTracker
     from rd_vio_tpu_torch.models.image_backend import TorchImageBackend
-    from rd_vio_tpu_torch.ops import frontend_loop, ransac
+    from rd_vio_tpu_torch.ops import frontend_loop, preintegration, ransac
     from rd_vio_tpu_torch.ops.image import klt
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -43,6 +45,7 @@ def _modules():
 def _check_imports_without_jax():
     mods = _modules() + ["chip_smoke"]
     assert "rd_vio_tpu_torch.ops.image.klt" in mods
+    assert "rd_vio_tpu_torch.estimation.ba" in mods
     assert "rd_vio_tpu_torch.models.handler" in mods
     code = (
         "import sys, importlib\n"
@@ -90,6 +93,14 @@ def _check_entry_points_default_to_the_card():
                         builders_t.Caps(), on_cpu)
     assert ft.device == torch.device("cpu") == on_cpu.device
     assert ft._K_dev.device.type == "cpu"
+    # the estimator's makers of tensors from nothing default to the card;
+    # initial_prior follows the states it is given
+    for fn in (state.zero_states, preintegration.zero_delta, factors.empty_reproj_prior,
+               factors.empty_imu_prior, synthetic_problems.identity_ext,
+               synthetic_problems.build_window_problem):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    prior = factors.initial_prior(2, state.zero_states(2, device="cpu"))
+    assert prior.sqrt_inv_cov.device.type == "cpu"
 
 
 def _in_child():
