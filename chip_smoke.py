@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's feature-tracking stage once on an NVIDIA GPU.
+"""Drive the PyTorch port's main path once on an NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -16,8 +16,8 @@ reverse track and one level of it) from the checkout, then:
      level kernel against the plain level; the time of each (CUDA events,
      in alternation after a warm-up) and each kernel's bound, computed from
      the shapes and from the iterations this run's keypoints took;
-  B. the slice: the bench's phase-1 sequence (8 s, 160 frames rendered at
-     752x480 before the clock starts) through Handler -> FeatureTracker ->
+  B. the slice: the first F_FRAMES (90) frames of the bench's phase-1
+     sequence (8 s, rendered at 752x480 before the clock starts) through Handler -> FeatureTracker ->
      TorchImageBackend with the reference-yaml profile of bench.py; frames/s
      over the second half, device ms per stage, keypoints per frame, the
      share of keypoints continued, and the fused kernel's launch count
@@ -36,18 +36,33 @@ reverse track and one level of it) from the checkout, then:
      information S^T S is symmetric positive semi-definite; the card's f64
      solve equals the port's CPU solve of the same inputs (accepted steps
      within 1, positions within 1e-6 m). Prints iterations, costs, device ms per
-     solve and per iteration (CUDA events, median of 5 after a warm-up), ms
+     solve and per iteration (CUDA events, after a warm-up: median of 3 in
+     f64, one f32 solve), ms
      per call with the host, host syncs per call, the device spans of
      build_normal_system / solve_normal_system, kernels per solve
-     (torch.profiler), and each part of an f64 iteration timed alone; and
+     (torch.profiler); and
      a two-view triangulation of the tracks of slots 0 and 1 against the
-     true points (within 1e-6 m), with its host syncs.
+     true points (within 1e-6 m), with its host syncs;
+  F. the main path: `Odometry(cfg, TorchImageBackend(cfg, kp_cap=384),
+     caps=bench.py's Caps)` over the first F_FRAMES frames of B's sequence
+     in bench.py's event order (synchronous). Checks: it reaches tracking
+     and never reports a crash; every published pose and window state is
+     finite; one fused LK launch per tracked frame pair and no level launch;
+     the fused keyframe step and its marginalization ran >= 3 times each;
+     the ATE (bench.py's SE3-aligned RMSE) within F_ATE_BOUND_M of the JAX
+     package's ATE on the CPU over the same frames (F_ATE_JAX_CPU_M); the
+     first fused keyframe step, run again on the card and on the CPU, agrees
+     (see keyframe_card_vs_cpu). Prints frames/s over the tracked frames, ms
+     per subframe and per keyframe, host syncs per frame, solves and LM
+     iterations per device program, the host spans by name, and kernels per
+     frame and the device busy share over the last frames (torch.profiler).
 
 Exits non-zero, with no result line, without a CUDA device or when any
 check fails. Before the last line come an `{"estimator": ...}` line with
-phase E's numbers and the `{"kernels": ...}` line with both LK kernels'
-launch counts, errors, times and bounds (the estimator adds no kernel: it
-is plain PyTorch, as it is XLA in the JAX package); the last line of stdout
+phase E's numbers, an `{"odometry": ...}` line with phase F's, and the
+`{"kernels": ...}` line with both LK kernels' launch counts (phase F's, the
+main path), errors, times and bounds (the estimator adds no kernel: it is
+plain PyTorch, as it is XLA in the JAX package); the last line of stdout
 is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -74,11 +89,13 @@ from rd_vio_tpu_torch.models import builders
 from rd_vio_tpu_torch.models.feature_tracker import FeatureTracker
 from rd_vio_tpu_torch.models.handler import Handler
 from rd_vio_tpu_torch.models.image_backend import TorchImageBackend
+from rd_vio_tpu_torch.models.odometry import Odometry
 from rd_vio_tpu_torch.ops import lie, triangulate
 from rd_vio_tpu_torch.ops.image import klt
 from rd_vio_tpu_torch.ops.image import pyramid as pyr_mod
 from rd_vio_tpu_torch.tools import lk_bench
 from rd_vio_tpu_torch.utils.metrics import GLOBAL_TIMER, DeviceStageTimer
+from rd_vio_tpu_torch.utils.trajectory import ate_rmse
 
 W_IMG, H_IMG = 752, 480
 KP_CAP = FeatureTracker.KP_CAP  # 384
@@ -433,7 +450,7 @@ def count_syncs(fn):
     return out, sum("synchronizing CUDA operation" in str(w.message) for w in caught)
 
 
-def time_call(fn, reps=5):
+def time_call(fn, reps=3):
     """fn() once to warm up, then reps times: (median device ms between two
     CUDA events around the call, median ms of the call with the host and a
     final synchronise)."""
@@ -471,28 +488,6 @@ def profile_call(fn):
     return kernels, kernel_us * 1e-3
 
 
-def build_parts(states, inv_depth, pb):
-    """Each part of one `build_normal_system` call, timed alone: {part:
-    (ms per call with the host, kernels run)}; printed."""
-    parts = {
-        "linearize_reprojection": lambda: ba.linearize_reprojection(states, inv_depth, pb),
-        "linearize_reproj_prior": lambda: ba.linearize_reproj_prior(states, pb),
-        "linearize_imu": lambda: ba.linearize_imu(states, pb),
-        "linearize_imu_prior": lambda: ba.linearize_imu_prior(states, pb),
-        "linearize_rot": lambda: ba.linearize_rot(states, pb),
-        "linearize_prior": lambda: ba.linearize_prior(states, pb),
-        "build_normal_system": lambda: ba.build_normal_system(states, inv_depth, pb),
-        "compute_cost": lambda: ba.compute_cost(states, inv_depth, pb),
-    }
-    out = {}
-    for name, fn in parts.items():
-        out[name] = (time_call(fn)[1], profile_call(fn)[0])
-    print("[E] f64 parts of an LM iteration, timed alone (ms per call with the host, "
-          "kernels): " + ", ".join(f"{k} {ms:.2f} ({n})" for k, (ms, n)
-                                           in out.items()))
-    return out
-
-
 def to_cpu(tree):
     return torch.utils._pytree.tree_map(lambda a: a.cpu(), tree)
 
@@ -514,7 +509,8 @@ def phase_e(seq, dev):
     for name, dtype in (("f64", torch.float64), ("f32", torch.float32)):
         args = builders.cast_floats((s0, invd0, pb), dtype)
         solve = lambda args=args: ba.solve_ba(*args, max_iterations=E_ITERS)  # noqa: E731
-        dev_ms, host_ms = time_call(solve)  # its first call warms up
+        reps = 3 if dtype == torch.float64 else 1  # an f32 solve takes ~7-11 s
+        dev_ms, host_ms = time_call(solve, reps)  # its first call warms up
         timer = DeviceStageTimer()  # records events only: no sync of its own
         res, syncs = count_syncs(
             lambda: ba.solve_ba(*args, max_iterations=E_ITERS, timer=timer))
@@ -530,7 +526,7 @@ def phase_e(seq, dev):
               f"{c0:.6e} -> {c1:.6e} ({c0 / max(c1, 1e-300):.3e} x); max position "
               f"error {p_err:.3e} m; all finite {finite}")
         print(f"[E] solve_ba {name}: device ms per solve {dev_ms:.3f} (CUDA events, "
-              f"median of 5 after a warm-up), per LM iteration {dev_ms / steps:.3f}; ms "
+              f"median of {reps} after a warm-up), per LM iteration {dev_ms / steps:.3f}; ms "
               f"per call with the host {host_ms:.3f}; host syncs per solve {syncs}; "
               f"kernels per solve {kernels} ({kernels / steps:.0f} per iteration), "
               f"summed kernel time {kernel_ms:.3f} ms (busy share "
@@ -549,7 +545,6 @@ def phase_e(seq, dev):
         check(p_err <= 5e-3, f"phase E: {name} position error {p_err:.3e} m > 5e-3")
         if dtype == torch.float64:
             res64 = res
-            rec["f64_parts"] = build_parts(res.states, res.inv_depth, args[2])
 
     # the card against the port's CPU solve of the same inputs
     t0 = time.perf_counter()
@@ -583,7 +578,7 @@ def phase_e(seq, dev):
     ref_m = marginalization.marginalize_frame0(ref.states, ref.inv_depth, to_cpu(pb_m))
     info_ref = ref_m.sqrt_inv_cov.mT @ ref_m.sqrt_inv_cov
     d_info = float((info.cpu() - info_ref).abs().max()) / float(info_ref.abs().max())
-    print(f"[E] marginalize_frame0 f64: device ms {m_dev:.3f} (median of 5), ms per call "
+    print(f"[E] marginalize_frame0 f64: device ms {m_dev:.3f} (median of 3), ms per call "
           f"with the host {m_host:.3f}, host syncs {m_syncs}; S^T S: max asymmetry "
           f"{asym:.3e}, eigenvalues {float(eig.min()):.3e} .. {scale:.3e}, rank "
           f"{int((eig > 1e-8 * scale).sum())} of {E_W * 15}; against the CPU's "
@@ -622,6 +617,221 @@ def phase_e(seq, dev):
     return rec
 
 
+# phase F: the main path, Odometry over the first F_FRAMES frames of B's
+# sequence with bench.py's Caps (bench.py:269) and profile
+F_CAPS = builders.Caps(W=15, L=256, O=2560, Fi=16, R=128, IMU=64, IMU_KF=384)
+F_FRAMES = 90
+# the JAX package's ATE on the same F_FRAMES frames, config and Caps, on the
+# CPU: `JAX_PLATFORMS=cpu python scripts/jax_ate_reference.py 160`, the line
+# of n = 90 (jaxlib on the CPU, synchronous, JaxImageBackend)
+F_ATE_JAX_CPU_M = 0.007106972188503752
+F_ATE_BOUND_M = max(2 * F_ATE_JAX_CPU_M, F_ATE_JAX_CPU_M + 0.01)
+F_PROFILE_FRAMES = 2  # frames traced by torch.profiler at the end of the run
+# card against CPU on one fused keyframe step. The f32 window solve stops on
+# a relative decrease of 1e-6, a few f32 ulps, which the card's atomic sums
+# and the CPU's sequential ones cross on different iterations: accepted
+# steps differed by 0, 1, 1 and 2 in four runs, the positions by 4.9e-7 to
+# 2.7e-5 m. The marginalization prior taken at each side's own solution
+# differed by 1.1e-8 to 5.5e-7 relative (the solutions differ); taken at the
+# same solution it is the f64 program alone.
+F_STEP_DIFFS = 4  # accepted steps the two window solves may differ by
+F_MASK_DIFFS = 5  # validation verdicts the card and the CPU may differ on
+F_PRIOR_OWN = 1e-5  # S^T S, each at its own solution, relative
+F_PRIOR_SAME = 1e-6  # S^T S at the card's solution, relative
+
+
+def phase_f(cfg, seq, frames, dev):
+    """`Odometry(cfg, TorchImageBackend(cfg, kp_cap=384), caps=F_CAPS)` over
+    the first F_FRAMES rendered frames in bench.py's event order; returns
+    the `odometry` record and the fused LK kernel's launches."""
+    klt.launches = klt.fwd_rev_launches = 0
+    GLOBAL_TIMER.reset()
+    builders.PROGRAM_STATS.clear()
+    builders.KF_FUSED_COUNT.n = 0
+    builders.CAPTURE_KEYFRAME, builders.CAPTURED_KEYFRAME = True, None
+    odo = Odometry(cfg, TorchImageBackend(cfg, dev, kp_cap=KP_CAP), caps=F_CAPS)
+    check(odo.device == dev, "phase F: Odometry is not on the card")
+    t_last = seq.t_frame[F_FRAMES - 1]
+    events = sorted([(t, 1, i) for i, t in enumerate(seq.t_imu) if t <= t_last + 0.02]
+                    + [(t, 0, i) for i, t in enumerate(seq.t_frame[:F_FRAMES])])
+    est_t, est_p, wall, kinds, syncs, states = [], [], [], [], [], []
+    # per frame: the wall time, host syncs and keyframe steps from the end of
+    # the previous frame event to the end of this one (the Handler runs a
+    # frame's work when the IMU samples after it arrive, inside add_motion)
+    marg = lambda: GLOBAL_TIMER.samples.get("swt.marginalize", ())  # noqa: E731
+    n_marg = 0
+    prof = None
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            n0, t0 = 0, time.perf_counter()
+            for t, kind, i in events:
+                if kind == 1:
+                    odo.add_motion(t, seq.gyro[i], seq.accel[i])
+                    continue
+                if i == F_FRAMES - F_PROFILE_FRAMES:
+                    from torch.profiler import ProfilerActivity, profile
+
+                    torch.cuda.synchronize()
+                    p = profile(activities=[ProfilerActivity.CUDA])
+                    p.__enter__()
+                    prof, t_prof = p, time.perf_counter()
+                odo.add_frame(t, frames[i])
+                wall.append(time.perf_counter() - t0)
+                syncs.append(sum("synchronizing CUDA operation" in str(w.message)
+                                 for w in caught[n0:]))
+                kinds.append("keyframe" if len(marg()) > n_marg else "subframe")
+                n_marg = len(marg())
+                n0, t0 = len(caught), time.perf_counter()
+                states.append(odo.state())
+                if states[-1] == 1:
+                    ls = odo.handler.get_latest_state()
+                    if ls is not None and (not est_t or ls[0] != est_t[-1]):
+                        est_t.append(ls[0])
+                        est_p.append(ls[2])
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            if prof is not None:
+                t_prof = time.perf_counter() - t_prof
+                prof.__exit__(None, None, None)
+    launches = klt.fwd_rev_launches
+    level_launches = klt.launches
+    builders.CAPTURE_KEYFRAME = False
+    programs = {k: dict(v) for k, v in builders.PROGRAM_STATS.items()}
+    host = GLOBAL_TIMER.stats()
+
+    check(2 not in states, "phase F: the system reported a crash")
+    check(1 in states, "phase F: the system never reached tracking")
+    first = states.index(1)
+    bootstraps = odo.frontend.bootstraps
+    tracked = [k for k, s in enumerate(states) if s == 1]
+    est_p = np.asarray(est_p)
+    check(np.isfinite(est_p).all(), "phase F: a non-finite published pose")
+    swt = odo.frontend.swt
+    check(swt is not None, "phase F: no sliding-window tracker at the end")
+    for f in swt.map.all_frames():
+        check(all(np.isfinite(np.asarray(x)).all() for x in (f.q, f.p, f.v, f.bg, f.ba)),
+              "phase F: a non-finite window state")
+    n_kf = builders.KF_FUSED_COUNT.n
+    n_tail = programs.get("marginalize_tail", {}).get("calls", 0)
+    gt_by_t = {round(tt, 6): p for tt, p in zip(seq.t_frame, seq.p_wb)}
+    ate = float(ate_rmse(est_p, np.stack([gt_by_t[round(tt, 6)] for tt in est_t])))
+
+    tr_wall = float(sum(wall[k] for k in tracked))
+    by_kind = {k: [1e3 * wall[i] for i in tracked if kinds[i] == k]
+               for k in ("subframe", "keyframe")}
+    kernels = kernel_ms = None
+    if prof is not None:
+        kernels, kernel_ms = 0, 0.0
+        for e in prof.key_averages():
+            if str(getattr(e, "device_type", "")).endswith("CUDA"):
+                kernels += e.count
+                kernel_ms += 1e-3 * getattr(e, "self_device_time_total",
+                                            getattr(e, "self_cuda_time_total", 0.0))
+    rec = {
+        "frames": F_FRAMES, "first_tracked_frame": first, "tracked_frames": len(tracked),
+        "bootstraps": bootstraps, "rebootstraps": bootstraps - 1,
+        "keyframe_fused_steps": n_kf, "marginalize_tail_runs": n_tail,
+        "frames_per_s_tracked": len(tracked) / tr_wall,
+        "ms_per_frame": {k: {"n": len(v), "mean": float(np.mean(v)) if v else None,
+                             "p50": float(np.median(v)) if v else None,
+                             "max": float(np.max(v)) if v else None}
+                         for k, v in by_kind.items()},
+        "host_syncs_per_frame": {"mean_tracked": float(np.mean([syncs[k] for k in tracked])),
+                                 "max": int(max(syncs)), "all_frames": int(sum(syncs))},
+        "programs": {k: {"calls": v["calls"], "solves": v["solves"],
+                         "lm_iterations": v["iterations"],
+                         "lm_iterations_per_solve": v["iterations"] / max(v["solves"], 1)}
+                     for k, v in programs.items()},
+        "spans_ms": {k: {"n": v["n"], "mean": v["mean_ms"], "p50": v["p50_ms"],
+                         "p90": v["p90_ms"]} for k, v in host.items()},
+        "profiled_frames": F_PROFILE_FRAMES, "kernels_per_frame":
+            None if kernels is None else kernels / F_PROFILE_FRAMES,
+        "device_busy_share": None if kernel_ms is None else kernel_ms / (1e3 * t_prof),
+        "lk_fwd_rev_launches": launches, "lk_level_launches": level_launches,
+        "ate_m": ate, "ate_jax_cpu_m": F_ATE_JAX_CPU_M, "ate_bound_m": F_ATE_BOUND_M,
+    }
+    print(f"[F] Odometry over {F_FRAMES} frames {W_IMG}x{H_IMG}: first tracked frame "
+          f"{first}, {len(tracked)} tracked, bootstraps {bootstraps} (re-bootstraps "
+          f"{bootstraps - 1}), fused keyframe steps {n_kf}, marginalize_tail runs {n_tail}")
+    print(f"[F] {rec['frames_per_s_tracked']:.3f} frames/s over the tracked frames "
+          f"({tr_wall:.1f} s); ms per frame: " + "; ".join(
+              f"{k} n={v['n']} mean {v['mean']:.0f} p50 {v['p50']:.0f} max {v['max']:.0f}"
+              for k, v in rec["ms_per_frame"].items() if v["n"]))
+    print(f"[F] host syncs per tracked frame: mean "
+          f"{rec['host_syncs_per_frame']['mean_tracked']:.1f}, max {max(syncs)}")
+    for k, v in sorted(rec["programs"].items()):
+        print(f"[F] program {k}: {v['calls']} calls, {v['solves']} solves, "
+              f"{v['lm_iterations_per_solve']:.1f} LM iterations per solve")
+    for k, v in sorted(host.items()):
+        print(f"[F] span {k}: mean {v['mean_ms']:.1f} ms p50 {v['p50_ms']:.1f} "
+              f"p90 {v['p90_ms']:.1f} (n={v['n']})")
+    if kernels is not None:
+        print(f"[F] last {F_PROFILE_FRAMES} frames under torch.profiler: "
+              f"{kernels / F_PROFILE_FRAMES:.0f} kernels per frame, summed kernel time "
+              f"{kernel_ms:.1f} ms in {1e3 * t_prof:.0f} ms (busy share "
+              f"{rec['device_busy_share']:.4f})")
+    print(f"[F] lk_fwd_rev kernel launches: {launches} (tracked frame pairs = "
+          f"{F_FRAMES - 1}); lk_level launches: {level_launches}")
+    print(f"[F] ATE (SE3-aligned RMSE of {len(est_p)} estimates) {ate:.5f} m; JAX on the "
+          f"CPU {F_ATE_JAX_CPU_M:.5f} m; bound {F_ATE_BOUND_M:.5f} m")
+    check(launches == F_FRAMES - 1,
+          f"phase F: {launches} fused LK launches, not {F_FRAMES - 1}")
+    check(level_launches == 0, "phase F: the main path launched the level kernel")
+    check(n_kf >= 3, f"phase F: only {n_kf} fused keyframe steps")
+    check(n_tail >= 3, f"phase F: only {n_tail} marginalize_tail runs")
+    check(ate <= F_ATE_BOUND_M, f"phase F: ATE {ate:.5f} m > {F_ATE_BOUND_M:.5f} m")
+    rec["card_vs_cpu"] = keyframe_card_vs_cpu()
+    return rec, launches
+
+
+def keyframe_card_vs_cpu():
+    """The first fused keyframe step after the window filled, as it ran on
+    the card (builders.CAPTURED_KEYFRAME kept its inputs and outputs), and
+    run again on the CPU: the f32 window solve's accepted steps within F_STEP_DIFFS and
+    positions within 1e-4 m, the validation verdicts equal on all but
+    F_MASK_DIFFS tracks; the f64 marginalization prior's S^T S within
+    F_PRIOR_OWN relative, each at its own solution, and within F_PRIOR_SAME
+    with the CPU marginalizing at the card's solution."""
+    check(builders.CAPTURED_KEYFRAME is not None, "phase F: no keyframe step captured")
+    (a, prior, calib, it), (res_g, _, v_g, ok_g, tri_g, prior_g) = builders.CAPTURED_KEYFRAME
+    info = lambda p: (p.sqrt_inv_cov.to("cpu", torch.float64).mT  # noqa: E731
+                      @ p.sqrt_inv_cov.to("cpu", torch.float64))
+    prior_c, calib_c = to_cpu((prior, calib))
+    t0 = time.perf_counter()
+    res_c, _, v_c, _, _, prior_cc = builders.run_keyframe_fused(a, prior_c, calib_c, it)
+    t_cpu = time.perf_counter() - t0
+    same = builders.marginalize_tail(
+        *to_cpu((res_g.states, res_g.inv_depth, v_g, tri_g, ok_g)), a["pa_m"],
+        *(torch.from_numpy(a[k]) for k in ("mlm_vti", "mlm_from_w", "mlm_tri")),
+        prior_c, calib_c)
+    it_g, it_c = int(res_g.iterations), int(res_c.iterations)
+    dp = float((res_g.states.p.cpu().double() - res_c.states.p.double()).abs().max())
+    n_diff = int((v_g.cpu() != v_c).sum())
+    rel = lambda x, y: float((x - y).abs().max() / y.abs().max())  # noqa: E731
+    d_own = rel(info(prior_g), info(prior_cc))
+    d_same = rel(info(prior_g), info(same))
+    rec = {"window_dtype": str(res_g.states.p.dtype), "accepted_steps": [it_g, it_c],
+           "max_position_diff_m": dp, "validation_differs": n_diff,
+           "validation_tracks": int(v_c.numel()), "prior_info_rel_diff": d_own,
+           "prior_info_rel_diff_same_solution": d_same, "cpu_replay_s": t_cpu}
+    print(f"[F] keyframe step card against CPU: accepted steps {it_g} / {it_c}, "
+          f"positions within {dp:.3e} m, validation differs on {n_diff} of "
+          f"{v_c.numel()} slots, prior S^T S within {d_own:.3e} relative (each at its "
+          f"own solution), {d_same:.3e} (the CPU at the card's solution); the CPU's "
+          f"replay took {t_cpu:.1f} s")
+    check(abs(it_g - it_c) <= F_STEP_DIFFS,
+          f"phase F: card and CPU window solves differ by > {F_STEP_DIFFS} steps")
+    check(dp <= 1e-4, f"phase F: card and CPU positions differ by {dp:.3e} m")
+    check(n_diff <= F_MASK_DIFFS, f"phase F: validation differs on {n_diff} tracks")
+    check(d_own <= F_PRIOR_OWN, f"phase F: card and CPU priors differ by {d_own:.3e}")
+    check(d_same <= F_PRIOR_SAME,
+          f"phase F: card and CPU marginalizations of one solution differ by {d_same:.3e}")
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -649,7 +859,7 @@ def main():
                              excitation=0.05)
     rend = SequenceRenderer(seq, image_size=(W_IMG, H_IMG))
     t_r = time.perf_counter()
-    frames = [np.asarray(rend.render(i), np.uint8) for i in range(len(seq.t_frame))]
+    frames = [np.asarray(rend.render(i), np.uint8) for i in range(F_FRAMES)]
     print(f"rendered {len(frames)} frames at {W_IMG}x{H_IMG} in "
           f"{time.perf_counter() - t_r:.1f} s")
     cfg = make_config(rend.K)
@@ -670,8 +880,11 @@ def main():
     lap("D")
     estimator = phase_e(seq, dev)
     lap("E")
+    odometry, fused["launches"] = phase_f(cfg, seq, frames, dev)
+    lap("F")
 
     print(json.dumps({"estimator": estimator}))
+    print(json.dumps({"odometry": odometry}))
     print(json.dumps({"kernels": [fused, level]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,8 +4,11 @@ The port of the JAX package `rd_vio_tpu`, module by module under the same
 paths and names. It imports `torch` and never `jax` or `rd_vio_tpu`; the
 parity tests are the only code that imports both.
 
-What runs so far:
-- the feature-tracking stage of the real-pixel pipeline:
+What runs so far: the main path of the real-pixel pipeline, synchronous,
+through `models.odometry.Odometry` (`Handler` -> `FeatureTracker` ->
+`Frontend` -> `Initializer`, then the `SlidingWindowTracker` and the
+estimator programs of `models.builders`), made of:
+- the feature-tracking stage:
   `models.handler.Handler` -> `models.feature_tracker.FeatureTracker` ->
   `models.image_backend.TorchImageBackend` -> `ops.frontend_loop.ft_loop_step`.
   Its hand-written kernels are in `csrc/lk_track.cu`: the pyramidal
@@ -18,9 +21,10 @@ What runs so far:
   `estimation.state`, `estimation.factors`, the window VI-BA solve
   `estimation.ba.solve_ba` and `estimation.marginalization.marginalize_frame0`,
   in plain PyTorch (XLA in the JAX package), with window problems from
-  `datasets.synthetic_problems`. The estimator is not yet wired behind the
-  tracker (no `Odometry`), so the port estimates poses of a given window
-  but runs no trajectory.
+  `datasets.synthetic_problems`;
+- the estimator's host side, copied NumPy: the assembly of the solves
+  (`models.builders`), the keyframe state machine and the PARSAC judge
+  (`models.sliding_window_tracker`, `ops.parsac_np`).
 
 Entry points compute on the GPU unless the caller names another device.
 """

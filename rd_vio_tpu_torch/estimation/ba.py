@@ -389,6 +389,9 @@ def solve_normal_system(H, g, Hll, Hcl, bl, cmask, lam, opt_lm):
 # LM loop
 # ---------------------------------------------------------------------------
 
+# solve_ba calls and the LM iterations they ran, for the callers' statistics
+STATS = {"solves": 0, "iterations": 0}
+
 
 def solve_ba(states: FrameStates, inv_depth, pb: BAProblem, max_iterations: int = 10,
              timer=None) -> BAResult:
@@ -417,7 +420,9 @@ def solve_ba(states: FrameStates, inv_depth, pb: BAProblem, max_iterations: int 
     s, invd, cost = states, inv_depth, cost0
     lam = torch.full((), 1e-4, dtype=dtype, device=dev)  # made on the device: no copy
     n_acc = torch.zeros((), dtype=torch.int32, device=dev)
+    STATS["solves"] += 1
     for _ in range(max_iterations):
+        STATS["iterations"] += 1
         with span("ba.build_normal_system"):
             H, g, Hll, Hcl, bl, cmask = build_normal_system(s, invd, pb)
         with span("ba.solve_normal_system"):

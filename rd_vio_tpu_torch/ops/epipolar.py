@@ -55,3 +55,22 @@ def essential_geometric_error(E, p1, p2):
     r = (_homog(p2) * Ep1).sum(dim=-1)
     denom = Ep1[..., 0] ** 2 + Ep1[..., 1] ** 2
     return r * r / torch.clamp(denom, min=1e-18)
+
+
+def decompose_essential(E):
+    """E -> two rotations + translation direction (reference essential.cpp:222-283).
+
+    Returns (R1, R2, T) with the four candidate poses being
+    (R1, T), (R1, -T), (R2, T), (R2, -T). Batched over leading dims. The
+    SVD's signs are arbitrary: another library may return R1 and R2
+    swapped and T negated, the same four candidates in another order."""
+    U, _, Vt = torch.linalg.svd(E)
+    # enforce proper rotations
+    U = U * torch.linalg.det(U)[..., None, None]
+    Vt = Vt * torch.linalg.det(Vt)[..., None, None]
+    W = torch.tensor([[0.0, 1.0, 0.0], [-1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
+                     dtype=E.dtype, device=E.device)
+    R1 = U @ W @ Vt
+    R2 = U @ W.T @ Vt
+    T = U[..., :, 2]
+    return R1, R2, T

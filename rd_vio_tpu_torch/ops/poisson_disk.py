@@ -67,3 +67,40 @@ def poisson_disk_filter(points: torch.Tensor, valid: torch.Tensor,
         grid.index_copy_(
             0, c, torch.where(accept, rows[i: i + 1], grid.index_select(0, c)))
     return accepted
+
+
+def poisson_disk_filter_np(points, valid, min_distance: float, width: float,
+                           height: float, preset_count: int = 0):
+    """Host (NumPy) twin of `poisson_disk_filter`, the same greedy grid-hash
+    semantics as a Python loop: the re-filter of the feature tracker's
+    host-mask path runs on the host after the mask RANSAC. (The JAX package
+    calls a native C++ filter here when one is built; this loop is its
+    oracle and gives the same mask.)"""
+    import numpy as np
+
+    r = float(min_distance)
+    cell = r / math.sqrt(2.0)
+    gx = int(math.ceil(width / cell)) + 4
+    gy = int(math.ceil(height / cell)) + 4
+    occ = {}
+    acc = np.zeros(len(points), bool)
+    r2 = r * r
+    for idx in range(len(points)):
+        if not valid[idx]:
+            continue
+        p = points[idx]
+        cj = min(max(int(p[0] / cell) + 2, 2), gx - 3)
+        ci = min(max(int(p[1] / cell) + 2, 2), gy - 3)
+        if idx < preset_count:
+            conflict = False
+        else:
+            conflict = any(
+                (q[0] - p[0]) ** 2 + (q[1] - p[1]) ** 2 < r2
+                for di in range(-2, 3)
+                for dj in range(-2, 3)
+                if (q := occ.get((ci + di, cj + dj))) is not None
+            )
+        if not conflict:
+            acc[idx] = True
+            occ[(ci, cj)] = (float(p[0]), float(p[1]))
+    return acc

@@ -19,7 +19,7 @@ from typing import NamedTuple
 
 import torch
 
-from rd_vio_tpu_torch.ops import epipolar, wahba
+from rd_vio_tpu_torch.ops import epipolar, homography, wahba
 
 CHI2_1DOF = 3.84  # reference stereo.cpp:59 (t1)
 CHI2_2DOF = 5.99  # reference stereo.cpp:85,113 (t2)
@@ -42,11 +42,15 @@ class GumbelSource:
         self.gen.manual_seed(int(seed))
 
     def __call__(self, num_hypotheses: int, n: int):
-        u = torch.rand((2, num_hypotheses, n), generator=self.gen,
-                       device=self.device, dtype=torch.float32)
-        tiny = torch.finfo(torch.float32).tiny
-        g = -torch.log(-torch.log(torch.clamp(u, min=tiny)))
+        g = self.draw((2, num_hypotheses, n))
         return g[0], g[1]
+
+    def draw(self, shape):
+        """One tensor of standard Gumbel noise of `shape` (f32)."""
+        u = torch.rand(shape, generator=self.gen, device=self.device,
+                       dtype=torch.float32)
+        tiny = torch.finfo(torch.float32).tiny
+        return -torch.log(-torch.log(torch.clamp(u, min=tiny)))
 
 
 def sample_indices(gumbel, valid, sample_size: int):
@@ -92,3 +96,30 @@ def ransac_rotation(gumbel, b1, b2, valid, threshold: float):
     R = wahba.solve_rotation(b1[idx], b2[idx])  # (K, 3, 3)
     err = wahba.rotation_angular_error(R, b1[None], b2[None])
     return _best_by_count(R, err, CHI2_2DOF * threshold ** 2, valid)
+
+
+def ransac_homography(gumbel, p1, p2, valid, threshold: float):
+    """find_homography_matrix (reference stereo.cpp:94-117): symmetric transfer
+    error with bound 2*t2*threshold^2. gumbel: (K, N) noise."""
+    idx = sample_indices(gumbel, valid, 4)
+    H = homography.solve_homography_dlt(p1[idx], p2[idx])  # (K, 3, 3)
+    # H^-1 up to scale by the adjugate; the scale cancels in the error
+    Hinv = _adjugate_3x3(H)
+    err = homography.homography_geometric_error(H, p1[None], p2[None]) + \
+        homography.homography_geometric_error(Hinv, p2[None], p1[None])
+    return _best_by_count(H, err, 2.0 * CHI2_2DOF * threshold ** 2, valid)
+
+
+def _adjugate_3x3(M):
+    """Adjugate of a 3x3 (batched): inv(M) up to det scale."""
+    a, b, c = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
+    d, e, f = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]
+    g, h, i = M[..., 2, 0], M[..., 2, 1], M[..., 2, 2]
+    return torch.stack(
+        [
+            torch.stack([e * i - f * h, c * h - b * i, b * f - c * e], dim=-1),
+            torch.stack([f * g - d * i, a * i - c * g, c * d - a * f], dim=-1),
+            torch.stack([d * h - e * g, b * g - a * h, a * e - b * d], dim=-1),
+        ],
+        dim=-2,
+    )

@@ -20,6 +20,8 @@ def _map(tree, fn):
         return fn(tree)
     if isinstance(tree, dict):
         return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):  # NamedTuple
+        return type(tree)(*(_map(v, fn) for v in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(_map(v, fn) for v in tree)
     return tree

@@ -1,0 +1,111 @@
+"""ATE of the JAX package on the main path's rendered sequence, on the CPU.
+
+    JAX_PLATFORMS=cpu python scripts/jax_ate_reference.py [n_frames] [--out FILE]
+
+Runs `rd_vio_tpu.models.odometry.Odometry` synchronously (threaded=False) with
+the JaxImageBackend over the first `n_frames` (default 160) frames of
+bench.py's phase-1 sequence (8 s, rendered at 752x480), with bench.py's
+`make_config(light=False)` (the fallback block used when the reference
+setting.yaml is absent) and its `Caps(W=15, L=256, O=2560, Fi=16, R=128,
+IMU=64, IMU_KF=384)`. Events go in bench.py's order (IMU and frames sorted by
+time) and the estimate of a frame is `handler.get_latest_state()` after it,
+once `state() == 1`, as bench.py collects them.
+
+Prints, for every prefix of N frames that a run of N frames would give (the
+run is synchronous, so the first N frames of a longer run are that run), the
+SE3-aligned ATE of the estimates collected so far (`utils.trajectory.ate_rmse`,
+bench.py's definition), the tracked frames, the fully fused keyframe steps
+(`builders.KF_FUSED_COUNT`) and the system state. chip_smoke.py's phase F
+holds the PyTorch port's ATE against the line of its N.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import jax  # noqa: E402
+
+jax.config.update("jax_platforms", os.environ.get("JAX_PLATFORMS", "cpu"))
+
+import numpy as np  # noqa: E402
+
+from rd_vio_tpu.config import Config  # noqa: E402
+from rd_vio_tpu.datasets import synthetic  # noqa: E402
+from rd_vio_tpu.datasets.renderer import SequenceRenderer  # noqa: E402
+from rd_vio_tpu.models import builders  # noqa: E402
+from rd_vio_tpu.models.image_backend import JaxImageBackend  # noqa: E402
+from rd_vio_tpu.models.odometry import Odometry  # noqa: E402
+from rd_vio_tpu.utils.trajectory import ate_rmse  # noqa: E402
+
+CAPS = builders.Caps(W=15, L=256, O=2560, Fi=16, R=128, IMU=64, IMU_KF=384)
+
+
+def make_config(K) -> Config:
+    cfg = Config()
+    cfg.sliding_window_size = 12
+    cfg.sliding_window_subframe_size = 5
+    cfg.sliding_window_force_keyframe_landmarks = 50
+    cfg.feature_tracker_min_keypoint_distance = 10.0
+    cfg.feature_tracker_max_keypoint_detection = 200
+    cfg.feature_tracker_max_frames = 20
+    cfg.solver_iteration_limit = 30
+    cfg.rotation_misalignment_threshold = 0.02
+    cfg.parsac_flag = True
+    cfg.parsac_dynamic_probability = 0.15
+    cfg.parsac_threshold = 1.0
+    cfg.parsac_keyframe_check_size = 1
+    cfg.ransac_hypotheses = 128
+    cfg.camera_intrinsic = K
+    cfg.camera_resolution = (752, 480)
+    return cfg
+
+
+def main(argv):
+    n_frames = int(argv[0]) if argv and not argv[0].startswith("-") else 160
+    out = argv[argv.index("--out") + 1] if "--out" in argv else None
+    seq = synthetic.generate(duration=8.0, n_landmarks=1200, max_keypoints=150,
+                             excitation=0.05)
+    rend = SequenceRenderer(seq, image_size=(752, 480))
+    frames = [np.asarray(rend.render(i), np.uint8) for i in range(n_frames)]
+    cfg = make_config(rend.K)
+    odo = Odometry(cfg, JaxImageBackend(cfg, kp_cap=384), caps=CAPS, threaded=False)
+    gt_by_t = {round(t, 6): p for t, p in zip(seq.t_frame, seq.p_wb)}
+    events = sorted([(t, 1, i) for i, t in enumerate(seq.t_imu)]
+                    + [(t, 0, i) for i, t in enumerate(seq.t_frame[:n_frames])])
+    est_t, est_p, rows = [], [], []
+    n, t0 = 0, time.perf_counter()
+    builders.KF_FUSED_COUNT.n = 0
+    for t, kind, i in events:
+        if kind == 1:
+            odo.add_motion(t, seq.gyro[i], seq.accel[i])
+            continue
+        odo.add_frame(t, frames[i])
+        n += 1
+        if odo.state() == 1:
+            ls = odo.handler.get_latest_state()
+            if ls is not None and (not est_t or ls[0] != est_t[-1]):
+                est_t.append(ls[0])
+                est_p.append(ls[2])
+        ate = None
+        if len(est_p) >= 3:
+            gt = np.stack([gt_by_t[round(tt, 6)] for tt in est_t])
+            ate = float(ate_rmse(np.asarray(est_p), gt))
+        rows.append({"n": n, "state": odo.state(), "tracked": len(est_p),
+                     "kf_fused": builders.KF_FUSED_COUNT.n, "ate_m": ate,
+                     "wall_s": round(time.perf_counter() - t0, 1)})
+        print(json.dumps(rows[-1]), flush=True)
+        if n >= n_frames:
+            break
+    if out:
+        with open(out, "w") as fh:
+            json.dump(rows, fh)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -1,7 +1,8 @@
 """The LK kernels on the card: the fused forward + reverse kernel and the
 per-level kernel against their plain versions, launch counting, a keypoint
 set that trips every status rule, and the wrappers' input checks; and the
-window VI-BA solve on the card against the same solve on the CPU. Every
+window VI-BA solve on the card against the same solve on the CPU; and a
+few frames of Odometry (the synthetic backend) on the card. Every
 test is marked `cuda` and skips where there is no CUDA device; this file
 imports no JAX, so on a GPU machine without JAX it runs as
 
@@ -194,3 +195,43 @@ def test_window_solve_on_the_card_matches_the_cpu(dev):
     assert torch.isfinite(p_card).all()
     assert (p_card - cpu.states.p).abs().max() <= 1e-6
     assert (p_card - gt.p).abs().max() <= 5e-3
+
+
+@pytest.mark.cuda
+def test_odometry_runs_on_the_card(dev):
+    """Odometry with the perfect-match synthetic backend on the card through
+    its initialization and a few tracked frames: the estimator's tensors on
+    the card, finite published poses within 0.05 m of the truth after SE3
+    alignment (tests/test_e2e_synthetic.py's bound)."""
+    from rd_vio_tpu_torch.config import Config
+    from rd_vio_tpu_torch.datasets import synthetic
+    from rd_vio_tpu_torch.models import builders
+    from rd_vio_tpu_torch.models.feature_tracker import SyntheticBackend
+    from rd_vio_tpu_torch.models.odometry import Odometry
+    from rd_vio_tpu_torch.utils.trajectory import ate_rmse
+
+    seq = synthetic.generate(duration=2.4, n_landmarks=1200, max_keypoints=150, seed=648)
+    cfg = Config()
+    cfg.camera_intrinsic = seq.K_mat
+    cfg.sliding_window_size = 4
+    cfg.ransac_hypotheses = 128
+    odo = Odometry(cfg, SyntheticBackend(seq), caps=builders.Caps(
+        W=13, L=256, O=1536, Fi=16, R=128, IMU=64, IMU_KF=384))
+    assert odo.device.type == "cuda" and odo.calib.tree.cov_w.device.type == "cuda"
+    events = sorted([(t, 1, i) for i, t in enumerate(seq.t_imu)]
+                    + [(t, 0, i) for i, t in enumerate(seq.t_frame)])
+    est_t, est_p = [], []
+    for t, kind, i in events:
+        if kind == 1:
+            odo.add_motion(t, seq.gyro[i], seq.accel[i])
+            continue
+        odo.add_frame(t, i)
+        if odo.state() == 1:
+            ls = odo.handler.get_latest_state()
+            if ls is not None and (not est_t or ls[0] != est_t[-1]):
+                est_t.append(ls[0])
+                est_p.append(ls[2])
+    assert len(est_p) >= 5 and np.isfinite(est_p).all()
+    gt_by_t = {round(t, 6): p for t, p in zip(seq.t_frame, seq.p_wb)}
+    gt = np.stack([gt_by_t[round(t, 6)] for t in est_t])
+    assert ate_rmse(np.asarray(est_p), gt) < 0.05

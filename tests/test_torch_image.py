@@ -5,10 +5,11 @@ port's counterpart (rd_vio_tpu_torch, on the CPU), with the tolerance stated
 beside each comparison.
 
 This module also holds what every tests/test_torch_*.py module shares:
-`child`, which runs a module's checks in a spawned process, and
-`rendered_frames`. Only that child imports torch and the port, and only it
-compiles the checks' JAX programs, so the test runner's own processes stay
-as they are without the port: jaxlib's CPU backend crashes intermittently
+`child`, which runs a module's checks in a spawned process, `jax_side`,
+which runs the JAX half of a whole-pipeline check in another, and
+`rendered_frames`. Only those processes import torch and the port, and
+only they compile the checks' JAX programs, so the test runner's own
+processes stay as they are without the port: jaxlib's CPU backend crashes intermittently
 in long, compile-heavy processes (tests/conftest.py), and with the port's
 checks running inside the workers, tests/test_async_keyframe.py was seen to
 crash in jaxlib's executable serialization. For the same reason these
@@ -17,6 +18,7 @@ modules hold few tests each, most of them one.
 
 import functools
 import multiprocessing
+import os
 from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
@@ -32,6 +34,8 @@ from rd_vio_tpu.ops.image import gftt as gftt_j
 from rd_vio_tpu.ops.image import pyramid as pyr_j
 
 IN_CHILD = multiprocessing.parent_process() is not None
+# set in the environment of a `jax_side` process (see there)
+KEEP_JAX_CACHE = "RDVIO_TEST_KEEP_JAX_CACHE"
 if IN_CHILD:
     import jax
     import torch
@@ -47,7 +51,10 @@ if IN_CHILD:
     # The checks neither read nor write the persistent compilation cache
     # that the suite's workers share: its entries are written in place, and
     # a reader racing a writer of the same program gets a partial entry.
-    jax.config.update("jax_enable_compilation_cache", False)
+    # (A `jax_side` process keeps it: it runs the JAX package's own
+    # programs, the ones its tests compile.)
+    if not os.environ.get(KEEP_JAX_CACHE):
+        jax.config.update("jax_enable_compilation_cache", False)
     # One intra-op thread: the suite runs in several worker processes at
     # once, and torch's OpenMP threads spin-waiting against them make the
     # many small ops of these checks tens of times slower.
@@ -57,27 +64,65 @@ if IN_CHILD:
 CHILD_TIMEOUT_S = 600
 
 
+def _spawned(env=None):
+    """A spawned one-process pool and call(fn, *args) into it; `env` is set
+    in the environment the process starts with (it starts at the first
+    call)."""
+    ctx = multiprocessing.get_context("spawn")
+    pool = ProcessPoolExecutor(max_workers=1, mp_context=ctx)
+
+    def call(fn, *args):
+        saved = {k: os.environ.get(k) for k in env or {}}
+        os.environ.update(env or {})
+        try:
+            fut = pool.submit(fn, *args)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    del os.environ[k]
+                else:
+                    os.environ[k] = v
+        try:
+            return fut.result(timeout=CHILD_TIMEOUT_S)
+        except TimeoutError:
+            for proc in list(pool._processes.values()):
+                proc.kill()
+            raise
+
+    return pool, call
+
+
 @pytest.fixture(scope="module")
 def child():
     """call(fn, *args): fn(*args) in this module's spawned child process.
     An assertion that fails there fails the calling test. A call that takes
     longer than CHILD_TIMEOUT_S kills the child and fails the test, so a
     hung child costs one test, not the whole run's time limit."""
-    ctx = multiprocessing.get_context("spawn")
-    pool = ProcessPoolExecutor(max_workers=1, mp_context=ctx)
-
-    def call(fn, *args):
-        try:
-            return pool.submit(fn, *args).result(timeout=CHILD_TIMEOUT_S)
-        except TimeoutError:
-            for proc in list(pool._processes.values()):
-                proc.kill()
-            raise
-
+    pool, call = _spawned()
     try:
         yield call
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
+
+
+_JAX_SIDE = []  # the (pool, call) of this test process's jax_side process
+
+
+@pytest.fixture(scope="module")
+def jax_side():
+    """call(fn, *args) like `child`'s, in a second spawned process that
+    keeps JAX's persistent compilation cache: the JAX half of a parity check
+    that runs the JAX package's pipeline (its programs are the ones that
+    package's own tests compile, so the cache serves them). A process apart
+    from the test runner's keeps the count of compiles per process low:
+    jaxlib's CPU backend aborts intermittently in long, compile-heavy
+    processes (tests/conftest.py), and a suite's worker that compiled these
+    programs was seen to abort in the cache write. One such process serves
+    every module of a test process (it ends when that process exits), so
+    that the modules share the programs it has loaded."""
+    if not _JAX_SIDE or _JAX_SIDE[0][0]._broken:  # a killed process is not reused
+        _JAX_SIDE[:] = [_spawned({KEEP_JAX_CACHE: "1"})]
+    return _JAX_SIDE[0][1]
 
 
 def rendered_frames(n, size=(320, 240), seed=648):

@@ -3,7 +3,7 @@ package, and every module imports on a machine with no nvcc and no CUDA;
 `convert` carries the JAX side's config into the port field by field, and
 the port's checks run in the child process of test_torch_image alone. The
 port's entry points compute on the GPU unless the caller names another
-device."""
+device: Odometry and the calibration's device constants included."""
 
 import subprocess
 import sys
@@ -24,8 +24,9 @@ if IN_CHILD:  # the port loads only where the checks run (test_torch_image)
     from rd_vio_tpu_torch.datasets import synthetic_problems
     from rd_vio_tpu_torch.estimation import factors, state
     from rd_vio_tpu_torch.models import builders as builders_t
-    from rd_vio_tpu_torch.models.feature_tracker import FeatureTracker
+    from rd_vio_tpu_torch.models.feature_tracker import FeatureTracker, SyntheticBackend
     from rd_vio_tpu_torch.models.image_backend import TorchImageBackend
+    from rd_vio_tpu_torch.models.odometry import Odometry
     from rd_vio_tpu_torch.ops import frontend_loop, preintegration, ransac
     from rd_vio_tpu_torch.ops.image import klt
 
@@ -47,6 +48,10 @@ def _check_imports_without_jax():
     assert "rd_vio_tpu_torch.ops.image.klt" in mods
     assert "rd_vio_tpu_torch.estimation.ba" in mods
     assert "rd_vio_tpu_torch.models.handler" in mods
+    for m in ("models.odometry", "models.frontend", "models.initializer",
+              "models.sliding_window_tracker", "models.builders", "ops.homography",
+              "ops.parsac_np", "ops.frontend_step_np", "utils.trajectory"):
+        assert f"rd_vio_tpu_torch.{m}" in mods, m
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -101,6 +106,32 @@ def _check_entry_points_default_to_the_card():
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     prior = factors.initial_prior(2, state.zero_states(2, device="cpu"))
     assert prior.sqrt_inv_cov.device.type == "cpu"
+    # the calibration's device constants and Odometry: the card by default,
+    # Odometry raises without one unless asked for the CPU, and follows its
+    # backend's device
+    calib = builders_t.CalibArrays.from_config(cfg)
+    assert calib.device == "cuda"
+    assert inspect.signature(builders_t.CalibArrays.from_config).parameters[
+        "device"].default == "cuda"
+    assert builders_t.CalibArrays.from_config(cfg, "cpu").tree.cov_w.device.type == "cpu"
+    assert inspect.signature(Odometry).parameters["device"].default is None
+    assert not torch.cuda.is_available()
+    for kw in ({}, {"device": "cuda"}):
+        try:
+            Odometry(cfg, SyntheticBackend(None), **kw)
+        except RuntimeError as e:
+            assert "no CUDA device" in str(e)
+        else:
+            raise AssertionError(f"Odometry({kw}) made without a card")
+    odo = Odometry(cfg, SyntheticBackend(None), device="cpu")
+    assert odo.calib.tree.cov_w.device.type == "cpu"
+    assert Odometry(cfg, on_cpu).device == torch.device("cpu")
+    try:
+        Odometry(cfg, on_cpu, device="cuda")
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("Odometry on another device than its backend")
 
 
 def _in_child():
