@@ -16,7 +16,7 @@ reverse track and one level of it) from the checkout, then:
      level kernel against the plain level; the time of each (CUDA events,
      in alternation after a warm-up) and each kernel's bound, computed from
      the shapes and from the iterations this run's keypoints took;
-  B. the slice: the first F_FRAMES (90) frames of the bench's phase-1
+  B. the slice: the first B_FRAMES (45) frames of the bench's phase-1
      sequence (8 s, rendered at 752x480 before the clock starts) through Handler -> FeatureTracker ->
      TorchImageBackend with the reference-yaml profile of bench.py; frames/s
      over the second half, device ms per stage, keypoints per frame, the
@@ -36,11 +36,10 @@ reverse track and one level of it) from the checkout, then:
      information S^T S is symmetric positive semi-definite; the card's f64
      solve equals the port's CPU solve of the same inputs (accepted steps
      within 1, positions within 1e-6 m). Prints iterations, costs, device ms per
-     solve and per iteration (CUDA events, after a warm-up: median of 3 in
-     f64, one f32 solve), ms
-     per call with the host, host syncs per call, the device spans of
-     build_normal_system / solve_normal_system, kernels per solve
-     (torch.profiler); and
+     solve and per iteration (CUDA events: one f64 solve after a warm-up;
+     the f32 solve is checked, not timed), ms per call with the host, host
+     syncs per call, the device spans of build_normal_system /
+     solve_normal_system, kernels per f64 solve (torch.profiler); and
      a two-view triangulation of the tracks of slots 0 and 1 against the
      true points (within 1e-6 m), with its host syncs;
   F. the main path: `Odometry(cfg, TorchImageBackend(cfg, kp_cap=384),
@@ -55,13 +54,30 @@ reverse track and one level of it) from the checkout, then:
      (see keyframe_card_vs_cpu). Prints frames/s over the tracked frames, ms
      per subframe and per keyframe, host syncs per frame, solves and LM
      iterations per device program, the host spans by name, and kernels per
-     frame and the device busy share over the last frames (torch.profiler).
+     frame and the device busy share over the last frame (torch.profiler);
+  G. the threaded main path with the device PARSAC, in a second process
+     that runs at once with F (see PhaseGChild): `Odometry(cfg_g,
+     TorchImageBackend(cfg_g, kp_cap=384), caps=F's Caps, threaded=True)`
+     with F's config but parsac_host_masks=False, over the first G_FRAMES
+     (88) frames in bench.py's event order, then join() and close().
+     Checks: no worker error; tracking reached with finite poses; after
+     join() the latest state is the last frame's; device judge calls equal
+     the frames that judged, >= 1 chained 2D-2D check; one fused LK launch
+     per frame pair and no level launch; both worker threads exited after
+     close(); the ATE within G_ATE_BOUND_M of the JAX package's synchronous
+     CPU run with the device PARSAC; the first judge's and the first chain's
+     inputs (noise included) replayed on the CPU (see parsac_card_vs_cpu).
+     Prints threaded frames/s beside F's synchronous frames/s over the same
+     frame indices, each worker's summed span time, the device judge's span
+     beside F's host twin, and the host syncs per judge and per chain call.
 
 Exits non-zero, with no result line, without a CUDA device or when any
 check fails. Before the last line come an `{"estimator": ...}` line with
-phase E's numbers, an `{"odometry": ...}` line with phase F's, and the
-`{"kernels": ...}` line with both LK kernels' launch counts (phase F's, the
-main path), errors, times and bounds (the estimator adds no kernel: it is
+phase E's numbers, an `{"odometry": ...}` line with phase F's, an
+`{"odometry_threaded": ...}` line with phase G's, and the `{"kernels": ...}`
+line with both LK kernels' launch counts (the fused kernel's: phases F and G,
+the main path, each counted from 0 just before it; the level kernel's: phase
+D), errors, times and bounds (the estimator adds no kernel: it is
 plain PyTorch, as it is XLA in the JAX package); the last line of stdout
 is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -69,11 +85,14 @@ is
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import statistics
+import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -86,11 +105,12 @@ from rd_vio_tpu_torch.datasets.renderer import SequenceRenderer
 from rd_vio_tpu_torch.datasets.synthetic_problems import build_window_problem, perturbed_start
 from rd_vio_tpu_torch.estimation import ba, marginalization
 from rd_vio_tpu_torch.models import builders
+from rd_vio_tpu_torch.models import sliding_window_tracker as swt_mod
 from rd_vio_tpu_torch.models.feature_tracker import FeatureTracker
 from rd_vio_tpu_torch.models.handler import Handler
 from rd_vio_tpu_torch.models.image_backend import TorchImageBackend
 from rd_vio_tpu_torch.models.odometry import Odometry
-from rd_vio_tpu_torch.ops import lie, triangulate
+from rd_vio_tpu_torch.ops import lie, parsac, triangulate
 from rd_vio_tpu_torch.ops.image import klt
 from rd_vio_tpu_torch.ops.image import pyramid as pyr_mod
 from rd_vio_tpu_torch.tools import lk_bench
@@ -98,6 +118,7 @@ from rd_vio_tpu_torch.utils.metrics import GLOBAL_TIMER, DeviceStageTimer
 from rd_vio_tpu_torch.utils.trajectory import ate_rmse
 
 W_IMG, H_IMG = 752, 480
+DEV = torch.device("cuda", 0)
 KP_CAP = FeatureTracker.KP_CAP  # 384
 
 
@@ -351,7 +372,11 @@ def run_slice(cfg, seq, frames, dev, lk, timer=None):
     return sink, stamps, ft
 
 
+B_FRAMES = 45  # phase B's frames (90 before phase G was added)
+
+
 def phase_b(cfg, seq, frames, dev):
+    frames = frames[:B_FRAMES]
     timer = DeviceStageTimer()
     GLOBAL_TIMER.reset()
     klt.launches = klt.fwd_rev_launches = 0
@@ -509,14 +534,14 @@ def phase_e(seq, dev):
     for name, dtype in (("f64", torch.float64), ("f32", torch.float32)):
         args = builders.cast_floats((s0, invd0, pb), dtype)
         solve = lambda args=args: ba.solve_ba(*args, max_iterations=E_ITERS)  # noqa: E731
-        reps = 3 if dtype == torch.float64 else 1  # an f32 solve takes ~7-11 s
-        dev_ms, host_ms = time_call(solve, reps)  # its first call warms up
+        timed = dtype == torch.float64  # the f32 solve (~7-11 s) is checked, not timed
+        if timed:
+            dev_ms, host_ms = time_call(solve, 1)  # its first call warms up
         timer = DeviceStageTimer()  # records events only: no sync of its own
         res, syncs = count_syncs(
             lambda: ba.solve_ba(*args, max_iterations=E_ITERS, timer=timer))
         spans = timer.stats()
         steps = spans["ba.build_normal_system"]["n"]
-        kernels, kernel_ms = profile_call(solve)
         acc = int(res.iterations)
         c0, c1 = float(res.initial_cost), float(res.cost)
         p_err = float((res.states.p - gt.p.to(dtype)).abs().max())
@@ -524,23 +549,24 @@ def phase_e(seq, dev):
                                                              res.cost))
         print(f"[E] solve_ba {name}: {acc} accepted of {steps} LM iterations; cost "
               f"{c0:.6e} -> {c1:.6e} ({c0 / max(c1, 1e-300):.3e} x); max position "
-              f"error {p_err:.3e} m; all finite {finite}")
-        print(f"[E] solve_ba {name}: device ms per solve {dev_ms:.3f} (CUDA events, "
-              f"median of {reps} after a warm-up), per LM iteration {dev_ms / steps:.3f}; ms "
-              f"per call with the host {host_ms:.3f}; host syncs per solve {syncs}; "
-              f"kernels per solve {kernels} ({kernels / steps:.0f} per iteration), "
-              f"summed kernel time {kernel_ms:.3f} ms (busy share "
-              f"{kernel_ms / dev_ms:.3f})")
+              f"error {p_err:.3e} m; all finite {finite}; host syncs per solve {syncs}")
         print(f"[E] solve_ba {name} device spans per iteration: " + ", ".join(
             f"{k.split('.', 1)[1]} {v['mean_ms']:.3f} ms (n={v['n']})"
             for k, v in spans.items()))
         check(finite, f"phase E: non-finite {name} solve")
         rec[name] = {"accepted": acc, "iterations": steps, "initial_cost": c0, "cost": c1,
-                     "max_position_error_m": p_err, "device_ms": dev_ms,
-                     "device_ms_per_iteration": dev_ms / steps, "host_ms": host_ms,
-                     "host_syncs": syncs, "kernels": kernels,
-                     "kernel_ms": kernel_ms,
+                     "max_position_error_m": p_err, "host_syncs": syncs,
                      "spans_ms": {k: v["mean_ms"] for k, v in spans.items()}}
+        if timed:
+            kernels, kernel_ms = profile_call(solve)
+            print(f"[E] solve_ba {name}: device ms per solve {dev_ms:.3f} (CUDA events, "
+                  f"one solve after a warm-up), per LM iteration {dev_ms / steps:.3f}; ms "
+                  f"per call with the host {host_ms:.3f}; kernels per solve {kernels} "
+                  f"({kernels / steps:.0f} per iteration), summed kernel time "
+                  f"{kernel_ms:.3f} ms (busy share {kernel_ms / dev_ms:.3f})")
+            rec[name].update({"device_ms": dev_ms, "device_ms_per_iteration": dev_ms / steps,
+                              "host_ms": host_ms, "kernels": kernels,
+                              "kernel_ms": kernel_ms})
         check(c1 <= 1e-3 * c0, f"phase E: {name} cost fell only {c0 / c1:.3e} x")
         check(p_err <= 5e-3, f"phase E: {name} position error {p_err:.3e} m > 5e-3")
         if dtype == torch.float64:
@@ -626,7 +652,7 @@ F_FRAMES = 90
 # of n = 90 (jaxlib on the CPU, synchronous, JaxImageBackend)
 F_ATE_JAX_CPU_M = 0.007106972188503752
 F_ATE_BOUND_M = max(2 * F_ATE_JAX_CPU_M, F_ATE_JAX_CPU_M + 0.01)
-F_PROFILE_FRAMES = 2  # frames traced by torch.profiler at the end of the run
+F_PROFILE_FRAMES = 1  # frames traced by torch.profiler at the end of the run
 # card against CPU on one fused keyframe step. The f32 window solve stops on
 # a relative decrease of 1e-6, a few f32 ulps, which the card's atomic sums
 # and the CPU's sequential ones cross on different iterations: accepted
@@ -784,7 +810,7 @@ def phase_f(cfg, seq, frames, dev):
     check(n_tail >= 3, f"phase F: only {n_tail} marginalize_tail runs")
     check(ate <= F_ATE_BOUND_M, f"phase F: ATE {ate:.5f} m > {F_ATE_BOUND_M:.5f} m")
     rec["card_vs_cpu"] = keyframe_card_vs_cpu()
-    return rec, launches
+    return rec, launches, wall
 
 
 def keyframe_card_vs_cpu():
@@ -832,14 +858,260 @@ def keyframe_card_vs_cpu():
     return rec
 
 
-def main():
+# phase G: the threaded main path (bench.py's default, `threaded = "--sync"
+# not in argv`) with the device PARSAC (parsac_host_masks=False). G_FRAMES is
+# the smallest frame count >= 50 at which the JAX package's synchronous CPU
+# run with the same config has made >= 8 judge calls and >= 1 chained 2D-2D
+# check: `JAX_PLATFORMS=cpu python scripts/jax_ate_reference.py 110
+# --device-parsac`, whose first line with chain_calls 1 is n = 88 (judge_calls
+# 47); its ATE there is G_ATE_JAX_CPU_M
+G_FRAMES = 88
+G_ATE_JAX_CPU_M = 0.007730035189931318
+G_ATE_BOUND_M = max(2 * G_ATE_JAX_CPU_M, G_ATE_JAX_CPU_M + 0.01)
+# the first judge's and chain's inputs replayed on the CPU: the f64 bin sums
+# (index_add_) are atomic on the card and sequential on the CPU, so a
+# hypothesis whose score ties another's at the last bit may win on one side
+G_REPLAY_MASK_DIFFS = 2  # mask slots the card and the CPU may differ on
+G_REPLAY_CONF_TOL = 1e-9  # bin confidences (each in [0, 1]), absolute
+
+
+def phase_g(cfg, seq, frames, dev):
+    """`Odometry(cfg_g, TorchImageBackend(cfg_g, kp_cap=384), caps=F_CAPS,
+    threaded=True)` over the first G_FRAMES frames in bench.py's event order,
+    then join() and close(); cfg_g is F's config with parsac_host_masks=False.
+    Returns the `odometry_threaded` record (with the published states' clock
+    stamps, for compare_g_with_f) and the fused LK kernel's launches."""
+    cfg_g = dataclasses.replace(cfg, parsac_host_masks=False)
+    klt.launches = klt.fwd_rev_launches = 0
+    GLOBAL_TIMER.reset()
+    builders.PROGRAM_STATS.clear()
+    builders.KF_FUSED_COUNT.n = 0
+    swt_mod.PARSAC_STATS.clear()
+    swt_mod.CAPTURED_PARSAC.clear()
+    swt_mod.CAPTURE_PARSAC = True
+    odo = Odometry(cfg_g, TorchImageBackend(cfg_g, dev, kp_cap=KP_CAP), caps=F_CAPS,
+                   threaded=True)
+    check(odo.device == dev, "phase G: Odometry is not on the card")
+    workers = (odo.handler._ft_worker, odo.handler._fe_worker)
+    published = []  # (t, p, host clock) of every published state
+    odo.frontend.on_publish = lambda lo: published.append(
+        (lo[0], lo[3].copy(), time.perf_counter()))
+    t_last = seq.t_frame[G_FRAMES - 1]
+    events = sorted([(t, 1, i) for i, t in enumerate(seq.t_imu) if t <= t_last + 0.02]
+                    + [(t, 0, i) for i, t in enumerate(seq.t_frame[:G_FRAMES])])
+    t0 = time.perf_counter()
+    try:
+        for t, kind, i in events:
+            if kind == 1:
+                odo.add_motion(t, seq.gyro[i], seq.accel[i])
+            else:
+                odo.add_frame(t, frames[i])
+        odo.join()  # raises a worker's error
+        torch.cuda.synchronize()
+        t_join = time.perf_counter() - t0
+        latest = odo.handler.get_latest_state()
+        healthy = odo.healthy()
+    finally:
+        swt_mod.CAPTURE_PARSAC = False
+        odo.close()  # raises a worker's error too
+    launches, level_launches = klt.fwd_rev_launches, klt.launches
+    host = GLOBAL_TIMER.stats()
+    stats = dict(swt_mod.PARSAC_STATS)
+    programs = {k: dict(v) for k, v in builders.PROGRAM_STATS.items()}
+
+    check(healthy, "phase G: a pipeline worker failed")
+    check(not any(w.is_alive() for w in workers),
+          "phase G: a worker thread is alive after close()")
+    check(bool(published), "phase G: the system never reached tracking")
+    est_t = np.array([t for t, _, _ in published])
+    est_p = np.stack([p for _, p, _ in published])
+    check(np.isfinite(est_p).all(), "phase G: a non-finite published pose")
+    check(latest is not None and latest[0] == seq.t_frame[G_FRAMES - 1],
+          "phase G: after join() the latest state is not the last frame's")
+    first = int(np.flatnonzero(np.isclose(seq.t_frame, est_t[0]))[0])
+    judged = host.get("swt.judge", {}).get("n", 0)  # frames whose judge ran
+    n_judge, n_chain = stats.get("judge", 0), stats.get("chain", 0)
+    gt_by_t = {round(tt, 6): p for tt, p in zip(seq.t_frame, seq.p_wb)}
+    ate = float(ate_rmse(est_p, np.stack([gt_by_t[round(tt, 6)] for tt in est_t])))
+
+    # throughput over the tracked frames: from the first publish to the last
+    # (each publish ends a frame's estimate), against F's synchronous
+    # per-frame wall times over the same frame indices
+    clock = np.array([c for _, _, c in published])
+    n_fps = len(published) - 1
+    fps_g = n_fps / (clock[-1] - clock[0]) if n_fps > 0 else float("nan")
+    span_sum = lambda k: host[k]["mean_ms"] * host[k]["n"] * 1e-3 if k in host else 0.0  # noqa: E731
+    busy_tr, busy_est = span_sum("worker.tracker"), span_sum("worker.estimator")
+    judge_g = host.get("swt.judge.parsac", {})
+    rec = {
+        "frames": G_FRAMES, "first_tracked_frame": first, "tracked_frames": len(published),
+        "bootstraps": odo.frontend.bootstraps, "wall_s_to_join": t_join,
+        "frames_per_s_tracked": fps_g,
+        "worker_busy_s": {"tracker": busy_tr, "estimator": busy_est},
+        "judge_calls": n_judge, "frames_judged": judged, "chain_calls": n_chain,
+        "judge_parsac_span_ms": judge_g.get("mean_ms"),
+        "chain_parsac_span_ms": host.get("swt.status.parsac", {}).get("mean_ms"),
+        "programs": {k: {"calls": v["calls"], "solves": v["solves"],
+                         "lm_iterations": v["iterations"]} for k, v in programs.items()},
+        "spans_ms": {k: {"n": v["n"], "mean": v["mean_ms"], "p50": v["p50_ms"],
+                         "p90": v["p90_ms"]} for k, v in host.items()},
+        "lk_fwd_rev_launches": launches, "lk_level_launches": level_launches,
+        "ate_m": ate, "ate_jax_cpu_m": G_ATE_JAX_CPU_M, "ate_bound_m": G_ATE_BOUND_M,
+    }
+    print(f"[G] threaded Odometry, device PARSAC, over {G_FRAMES} frames {W_IMG}x{H_IMG}: "
+          f"first tracked frame {first}, {len(published)} tracked, bootstraps "
+          f"{odo.frontend.bootstraps}, join after {t_join:.1f} s")
+    print(f"[G] {fps_g:.3f} frames/s over the tracked frames (threaded)")
+    print(f"[G] worker spans summed: tracker {busy_tr:.1f} s, estimator {busy_est:.1f} s, "
+          f"wall to join {t_join:.1f} s (overlap share "
+          f"{(busy_tr + busy_est - t_join) / max(min(busy_tr, busy_est), 1e-9):.3f} of the "
+          f"smaller worker's time)")
+    print(f"[G] device judge: {n_judge} imu_parsac_pnp calls on {judged} judged frames; "
+          f"{n_chain} parsac_essential_chain calls; span swt.judge.parsac mean "
+          f"{judge_g.get('mean_ms', float('nan')):.2f} ms")
+    for k, v in sorted(host.items()):
+        print(f"[G] span {k}: mean {v['mean_ms']:.1f} ms p50 {v['p50_ms']:.1f} "
+              f"p90 {v['p90_ms']:.1f} (n={v['n']})")
+    print(f"[G] lk_fwd_rev kernel launches: {launches} (tracked frame pairs = "
+          f"{G_FRAMES - 1}); lk_level launches: {level_launches}")
+    print(f"[G] ATE (SE3-aligned RMSE of {len(est_p)} estimates) {ate:.5f} m; JAX on the "
+          f"CPU (synchronous, device PARSAC) {G_ATE_JAX_CPU_M:.5f} m; bound {G_ATE_BOUND_M:.5f} m")
+    check(n_judge == judged and n_judge >= 1,
+          f"phase G: {n_judge} device judge calls on {judged} judged frames")
+    check(n_chain >= 1, "phase G: no chained 2D-2D check ran")
+    check(launches == G_FRAMES - 1,
+          f"phase G: {launches} fused LK launches, not {G_FRAMES - 1}")
+    check(level_launches == 0, "phase G: the main path launched the level kernel")
+    check(ate <= G_ATE_BOUND_M, f"phase G: ATE {ate:.5f} m > {G_ATE_BOUND_M:.5f} m")
+    rec["replay"] = parsac_card_vs_cpu()
+    return rec, launches
+
+
+def compare_g_with_f(g_rec, f_rec, wall_f):
+    """G's threaded frames/s beside F's synchronous frames/s over the same
+    frame indices (G's tracked frames after its first), and G's device judge
+    span beside F's host twin; added to G's record."""
+    first = g_rec["first_tracked_frame"]
+    same = range(first + 1, G_FRAMES)
+    fps_f = len(same) / sum(wall_f[k] for k in same)
+    twin = f_rec["spans_ms"].get("swt.judge.parsac", {}).get("mean", float("nan"))
+    g_rec["frames_per_s_tracked_sync_f_same_frames"] = fps_f
+    g_rec["judge_parsac_span_ms_host_twin_f"] = twin
+    print(f"[G] {g_rec['frames_per_s_tracked']:.3f} frames/s over the tracked frames "
+          f"(threaded) against F's synchronous {fps_f:.3f} over frames "
+          f"{first + 1}-{G_FRAMES - 1} (the two ran at once, each in its own process)")
+    print(f"[G] span swt.judge.parsac: device PARSAC {g_rec['judge_parsac_span_ms']:.2f} ms "
+          f"against F's host twin {twin:.2f} ms")
+
+
+class PhaseGChild:
+    """Phase G in a second process (`python3 chip_smoke.py --phase-g-child
+    OUT`), started before phase F so that the two main-path runs, each
+    bound by its host's Python dispatch, take their time at once: one after
+    the other they would pass the script's time limit on the slower
+    machines. Its stdout goes to a file; `finish()` waits for it (the
+    process is killed if it outlives G_CHILD_TIMEOUT_S or the parent
+    fails), relays its output and returns its record and launches."""
+
+    def __init__(self, tmp):
+        self.out = os.path.join(tmp, "phase_g.json")
+        self.log = open(os.path.join(tmp, "phase_g.log"), "w+")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--phase-g-child", self.out],
+            stdout=self.log, stderr=subprocess.STDOUT)
+
+    def finish(self):
+        try:
+            rc = self.proc.wait(timeout=max(G_CHILD_TIMEOUT_S - (time.perf_counter() - self.t0),
+                                            1))
+        finally:
+            self.stop()
+        self.log.seek(0)
+        sys.stdout.write(self.log.read())
+        self.log.close()
+        print(f"[G] phase took {time.perf_counter() - self.t0:.1f} s in its own process "
+              f"(concurrent with F)")
+        check(rc == 0, f"phase G: its process exited with {rc}")
+        with open(self.out) as fh:
+            out = json.load(fh)
+        return out["record"], out["launches"]
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+G_CHILD_TIMEOUT_S = 900
+
+
+def phase_g_child(out_path):
+    """The body of the phase-G process: the same setup as main's, phase G,
+    its record and launches written to `out_path`."""
+    if not torch.cuda.is_available():
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    klt.load_kernel()  # built by the parent: loaded by its source hash
+    seq, rend, frames = render(G_FRAMES)
+    rec, launches = phase_g(make_config(rend.K), seq, frames, DEV)
+    with open(out_path, "w") as fh:
+        json.dump({"record": rec, "launches": launches}, fh)
+    return 0
+
+
+def render(n):
+    """bench.py phase 1's sequence and its first n frames at 752x480."""
+    seq = synthetic.generate(duration=8.0, n_landmarks=1200, max_keypoints=150,
+                             excitation=0.05)
+    rend = SequenceRenderer(seq, image_size=(W_IMG, H_IMG))
+    return seq, rend, [np.asarray(rend.render(i), np.uint8) for i in range(n)]
+
+
+def parsac_card_vs_cpu():
+    """The first device judge call's and the first chain call's inputs (their
+    Gumbel noise included) as G ran them on the card, run again on the card
+    (its host syncs counted) and on the CPU: masks within G_REPLAY_MASK_DIFFS
+    slots, bin confidences within G_REPLAY_CONF_TOL."""
+    out = {}
+    for kind, fn in (("judge", parsac.imu_parsac_pnp),
+                     ("chain", parsac.parsac_essential_chain)):
+        check(kind in swt_mod.CAPTURED_PARSAC, f"phase G: no {kind} call captured")
+        args, res_g = swt_mod.CAPTURED_PARSAC[kind]
+        on_card = {k: v.to(DEV) if isinstance(v, torch.Tensor) else v
+                   for k, v in args.items()}
+        _, syncs = count_syncs(lambda: fn(**on_card))
+        res_c = fn(**args)
+        if kind == "judge":
+            m_g, m_c = res_g[1], res_c.inlier_mask
+            c_g, c_c = res_g[4], res_c.bin_confidences
+        else:
+            (m_g, c_g), (m_c, c_c) = res_g, res_c
+        n_diff = int((m_g != m_c).sum())
+        dc = float((c_g - c_c).abs().max())
+        out[kind] = {"mask_slots_differ": n_diff, "mask_slots": int(m_c.numel()),
+                     "bin_conf_max_diff": dc, "host_syncs_per_call": syncs,
+                     "inliers": int(m_c.sum())}
+        print(f"[G] first {kind} call, card against CPU on its inputs: masks differ on "
+              f"{n_diff} of {m_c.numel()} slots ({int(m_c.sum())} inliers on the CPU), bin "
+              f"confidences within {dc:.3e}; host syncs per call on the card {syncs}")
+        check(n_diff <= G_REPLAY_MASK_DIFFS,
+              f"phase G: {kind} masks differ on {n_diff} slots")
+        check(dc <= G_REPLAY_CONF_TOL, f"phase G: {kind} bin confidences differ by {dc:.3e}")
+    return out
+
+
+def main(argv):
+    if "--phase-g-child" in argv:  # phase G's own process (PhaseGChild)
+        return phase_g_child(argv[argv.index("--phase-g-child") + 1])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda", 0)
+    dev = DEV
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -855,11 +1127,8 @@ def main():
         if "registers" in line or "Compiling" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
 
-    seq = synthetic.generate(duration=8.0, n_landmarks=1200, max_keypoints=150,
-                             excitation=0.05)
-    rend = SequenceRenderer(seq, image_size=(W_IMG, H_IMG))
     t_r = time.perf_counter()
-    frames = [np.asarray(rend.render(i), np.uint8) for i in range(F_FRAMES)]
+    seq, rend, frames = render(F_FRAMES)
     print(f"rendered {len(frames)} frames at {W_IMG}x{H_IMG} in "
           f"{time.perf_counter() - t_r:.1f} s")
     cfg = make_config(rend.K)
@@ -872,19 +1141,30 @@ def main():
 
     fused, level = phase_a(cfg, frames, dev)
     lap("A")
-    sink_b, fused["launches"], _ = phase_b(cfg, seq, frames, dev)
+    sink_b, _, _ = phase_b(cfg, seq, frames, dev)
     lap("B")
     phase_c(cfg, seq, frames, dev, sink_b)
     lap("C")
     level["launches"] = phase_d(cfg, seq, frames, dev, sink_b)
     lap("D")
-    estimator = phase_e(seq, dev)
+    records = {"estimator": phase_e(seq, dev)}
     lap("E")
-    odometry, fused["launches"] = phase_f(cfg, seq, frames, dev)
-    lap("F")
+    with tempfile.TemporaryDirectory() as tmp:
+        child = PhaseGChild(tmp)  # phase G, at once with F
+        try:
+            records["odometry"], launches_f, wall_f = phase_f(cfg, seq, frames, dev)
+            lap("F")
+            records["odometry_threaded"], launches_g = child.finish()
+        finally:
+            child.stop()
+    compare_g_with_f(records["odometry_threaded"], records["odometry"], wall_f)
+    # the main path's launches: phases F and G, each counted from 0 just
+    # before it ran
+    fused["launches_by_phase"] = {"F": launches_f, "G": launches_g}
+    fused["launches"] = launches_f + launches_g
 
-    print(json.dumps({"estimator": estimator}))
-    print(json.dumps({"odometry": odometry}))
+    for k, v in records.items():
+        print(json.dumps({k: v}))
     print(json.dumps({"kernels": [fused, level]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -893,4 +1173,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

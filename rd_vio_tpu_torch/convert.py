@@ -39,6 +39,19 @@ def config_from(cfg) -> Config:
                      for f in dataclasses.fields(Config)})
 
 
+def bin_confidences_from(conf, device) -> torch.Tensor:
+    """PARSAC bin confidences, (400,) f64 (the JAX package's x64 carry)."""
+    return torch.from_numpy(np.array(conf, np.float64)).to(device)
+
+
+def parsac_result_np(res) -> dict:
+    """A ParsacResult of either package as NumPy arrays, by field name (for
+    comparisons)."""
+    def host(v):
+        return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+    return {k: host(v) for k, v in res._asdict().items()}
+
+
 def loop_state_from(pix, valid, life, device) -> FTLoopState:
     """FTLoopState from (C, 2) pixels, (C,) validity and (C,) track life."""
     return FTLoopState(

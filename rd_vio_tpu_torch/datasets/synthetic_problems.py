@@ -157,3 +157,37 @@ def perturbed_start(states: FrameStates, inv_depth, pb: ba.BAProblem, seed: int 
     inv_depth0 = torch.clamp(inv_depth * (1.0 + 0.2 * to(noise)), min=1e-3)
     free = torch.arange(W, device=pb.opt_pose.device) > 0
     return states0, inv_depth0, pb._replace(opt_pose=free, opt_motion=free.clone())
+
+
+def _rotvec(w):
+    """Rotation matrix of a rotation vector (Rodrigues), NumPy."""
+    th = float(np.linalg.norm(w))
+    k = np.asarray(w, float) / max(th, 1e-300)
+    K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    return np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * K @ K
+
+
+def pnp_scene(seed: int, n: int = 128, outliers: float = 0.2, invalid: float = 0.1,
+              dynamic: float = 0.0, noise: float = 2e-4):
+    """A PnP / IMU-PARSAC problem as the tracker's judge builds it, NumPy f64:
+    world points seen by a camera at a known pose, their normalized
+    observations with `noise`, a share of mismatches (`outliers`), invalid
+    (zero) slots and track lengths. A share `dynamic` of the points moves
+    with an object: those are seen at another pose.
+
+    Returns dict(x_world (n, 3), p_norm (n, 2), valid (n,), lens (n,),
+    R_cw, t_cw (the static pose), dynamic (n,) bool)."""
+    rng = np.random.default_rng(seed)
+    X = np.stack([rng.uniform(-3, 3, n), rng.uniform(-2, 2, n), rng.uniform(4, 12, n)], -1)
+    R = _rotvec([0.03, -0.05, 0.02])
+    t = np.array([0.2, -0.1, 0.3])
+    dyn = rng.uniform(size=n) < dynamic
+    x_cam = X @ R.T + t
+    x_cam[dyn] = X[dyn] @ _rotvec([0.0, 0.2, 0.0]).T + np.array([1.5, 0.0, 0.5])
+    p = x_cam[:, :2] / x_cam[:, 2:] + rng.normal(0, noise, (n, 2))
+    bad = rng.uniform(size=n) < outliers
+    p[bad] += rng.normal(0, 0.05, (int(bad.sum()), 2))
+    valid = rng.uniform(size=n) > invalid
+    X[~valid], p[~valid] = 0.0, 0.0
+    lens = np.where(valid, rng.integers(1, 30, n), 0).astype(np.float64)
+    return dict(x_world=X, p_norm=p, valid=valid, lens=lens, R_cw=R, t_cw=t, dynamic=dyn)

@@ -22,6 +22,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import logging
+import threading
 import types
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
@@ -49,15 +50,23 @@ KF_FUSED_COUNT = types.SimpleNamespace(n=0)
 PROGRAM_STATS: Dict[str, collections.Counter] = collections.defaultdict(collections.Counter)
 
 
+# guards PROGRAM_STATS and KF_FUSED_COUNT: a threaded Odometry runs the
+# programs in its estimator worker while the caller reads the counts. The
+# solves of one Odometry all run on that one thread, so the differences of
+# ba.STATS below belong to `fn`.
+_stats_lock = threading.Lock()
+
+
 def _count(name: str, fn, *args, **kw):
     """fn(*args, **kw), its call and the LM iterations of its solves
     counted under `name` in PROGRAM_STATS."""
     s0, i0 = ba.STATS["solves"], ba.STATS["iterations"]
     out = fn(*args, **kw)
-    st = PROGRAM_STATS[name]
-    st["calls"] += 1
-    st["solves"] += ba.STATS["solves"] - s0
-    st["iterations"] += ba.STATS["iterations"] - i0
+    with _stats_lock:
+        st = PROGRAM_STATS[name]
+        st["calls"] += 1
+        st["solves"] += ba.STATS["solves"] - s0
+        st["iterations"] += ba.STATS["iterations"] - i0
     return out
 
 
@@ -1285,7 +1294,8 @@ def solve_keyframe_fused(
     (res, res_loc, lm_w, valid_out, tri_ok, tri_invd, new_prior) on the
     device."""
     global CAPTURED_KEYFRAME
-    KF_FUSED_COUNT.n += 1
+    with _stats_lock:
+        KF_FUSED_COUNT.n += 1
     a, lm_w = assemble_keyframe_fused(
         spec_loc, pending, spec_w, tracks_v, spec_m, frames_by_id, calib,
         caps, caps_loc=caps_loc, dtype=dtype, loc_dtype=loc_dtype,

@@ -16,8 +16,10 @@ The counterpart of the JAX package's models/feature_tracker.py, two paths:
   `feature_tracker_pipeline_depth` frames later;
 - the host-mask path (`_track_keypoints`, any other backend, such as the
   perfect-match `SyntheticBackend`): the backend tracks, the mask RANSAC
-  (`ops.frontend_step_np.ft_step_np`, host seeds) and the Poisson re-filter
-  run on the host, and each frame is issued at once.
+  runs on the host (`ops.frontend_step_np.ft_step_np`, host seeds) or, with
+  `feature_tracker_host_masks` off, as the device program
+  `ops.frontend_step.ft_step` (Gumbel noise from `noise`, one fetch), the
+  Poisson re-filter on the host, and each frame is issued at once.
 """
 
 from __future__ import annotations
@@ -32,11 +34,12 @@ from rd_vio_tpu_torch.models import builders
 from rd_vio_tpu_torch.models.map import FT_NO_TRANSLATION, Frame, Map, TT_TRASH
 from rd_vio_tpu_torch.models.quat_np import q_to_R, qconj, qmul
 from rd_vio_tpu_torch.ops import frontend_loop as fl
+from rd_vio_tpu_torch.ops import frontend_step as fs
 from rd_vio_tpu_torch.ops import poisson_disk
 from rd_vio_tpu_torch.ops import preintegration_np as pre_np
 from rd_vio_tpu_torch.ops.frontend_step_np import ft_step_np
 from rd_vio_tpu_torch.ops.ransac import GumbelSource
-from rd_vio_tpu_torch.utils.host import fetch_async, to_device
+from rd_vio_tpu_torch.utils.host import fetch, fetch_async, to_device
 from rd_vio_tpu_torch.utils.metrics import GLOBAL_TIMER as T
 
 
@@ -94,8 +97,9 @@ class FeatureTracker:
         """backend: an image backend; with `supports_device_loop` (e.g.
         models.image_backend.TorchImageBackend) and
         feature_tracker_device_loop on, the device loop runs, else the
-        host-mask path. device: where the loop state lives (default: the
-        backend's device). noise (device loop): callable
+        host-mask path. device: where the loop state (or the device mask
+        program) lives (default: the backend's device). noise (device loop,
+        or feature_tracker_host_masks off): callable
         (num_hypotheses, n) -> (gumbel_essential, gumbel_rotation), each
         (num_hypotheses, n); default a GumbelSource seeded with
         config.random + 1."""
@@ -103,10 +107,6 @@ class FeatureTracker:
             getattr(config, "feature_tracker_device_loop", True)
             and getattr(backend, "supports_device_loop", False)
         )
-        if not self.device_loop and not config.feature_tracker_host_masks:
-            raise NotImplementedError(
-                "feature_tracker_host_masks=False outside the device loop: the "
-                "device mask program (ops/frontend_step.ft_step) is not ported")
         self.config = config
         self.calib = calib
         self.caps = caps
@@ -117,7 +117,7 @@ class FeatureTracker:
         self.map = Map()
         self.frontend = None  # set by models.odometry.Odometry
         self._noise = noise
-        if self.device_loop and noise is None:
+        if (self.device_loop or not config.feature_tracker_host_masks) and noise is None:
             self._noise = GumbelSource(config.random + 1, self.device)
         self._host_seed_ctr = 0
         self._frame_counter = 0
@@ -239,10 +239,7 @@ class FeatureTracker:
             self._frame_counter
             % max(cfg.sliding_window_tracker_frequent, 1)
         ) == 0
-        noise = tuple(
-            g if isinstance(g, torch.Tensor) else to_device(g, dev, torch.float32)
-            for g in self._noise(int(cfg.ransac_hypotheses), self.KP_CAP)
-        )
+        noise = self._mask_noise()
         timer = self.device_timer
         with timer.time("ft.step") if timer is not None else contextlib.nullcontext():
             state, fetch = fl.ft_loop_step(
@@ -260,6 +257,13 @@ class FeatureTracker:
         # start the device->host copy now; it is consumed pipeline-depth
         # frames later by _dl_finalize
         self._dl_pending.append((fetch_async(fetch), frame, last))
+
+    def _mask_noise(self):
+        """This frame's (essential, rotation) Gumbel noise on the device."""
+        return tuple(
+            g if isinstance(g, torch.Tensor) else to_device(g, self.device, torch.float32)
+            for g in self._noise(int(self.config.ransac_hypotheses), self.KP_CAP)
+        )
 
     def _dl_finalize(self) -> Optional[Frame]:
         """Fetch + host bookkeeping for the OLDEST in-flight pair: append
@@ -393,10 +397,21 @@ class FeatureTracker:
 
         W_img, H_img = self.config.camera_resolution
         rot_thr = np.float32(np.radians(cfg.rotation_ransac_threshold))
+        pending = None
+        if not cfg.feature_tracker_host_masks:
+            # the device mask program runs while the host predicts
+            dev = self.device
+            pending = fs.ft_step(to_device(b1, dev), to_device(b2, dev),
+                                 to_device(val, dev), self._mask_noise(), float(rot_thr))
+        # predicted state, under map.lock: the frontend worker rewrites
+        # last's state concurrently (_repropagate_from_optimized)
         with self.map.lock:
             builders.predict_frame(last, frame, self.calib, self.caps.IMU)
-        out = ft_step_np(b1, b2, val, self._next_seed(), rot_thr,
-                         num_hypotheses=cfg.ransac_hypotheses)
+        if pending is None:
+            out = ft_step_np(b1, b2, val, self._next_seed(), rot_thr,
+                             num_hypotheses=cfg.ransac_hypotheses)
+        else:
+            out = fetch(pending)
 
         # pure-rotation detector (reference frame.cpp:115-131)
         if float(out["misalign"]) < cfg.rotation_misalignment_threshold:

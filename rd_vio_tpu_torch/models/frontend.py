@@ -29,14 +29,21 @@ class SysState(Enum):
 class Frontend:
     def __init__(self, feature_tracker, config, calib: builders.CalibArrays,
                  caps: builders.Caps,
-                 init_noise: Optional[Callable[[], Callable]] = None):
+                 init_noise: Optional[Callable[[], Callable]] = None,
+                 swt_noise: Optional[Callable[[], Callable]] = None):
         """init_noise: zero-argument factory of each new Initializer's RANSAC
-        noise source (see Initializer; default: its own seeded source)."""
+        noise source (see Initializer; default: its own seeded source).
+        swt_noise: the same for each new SlidingWindowTracker's device-PARSAC
+        noise (see SlidingWindowTracker)."""
         self.feature_tracker = feature_tracker
         self.config = config
         self.calib = calib
         self.caps = caps
         self.init_noise = init_noise
+        self.swt_noise = swt_noise
+        # optional callable, called with `latest_optimized` after every
+        # publish (on the thread that runs the frontend)
+        self.on_publish: Optional[Callable[[tuple], None]] = None
         self.initializer: Optional[Initializer] = self._new_initializer()
         self.swt: Optional[SlidingWindowTracker] = None
         self.bootstraps = 0  # initializations that succeeded
@@ -114,7 +121,8 @@ class Frontend:
             init_map = self.initializer.initialize()
             if init_map is not None:
                 self.swt = SlidingWindowTracker(
-                    init_map, self.config, self.calib, self.caps
+                    init_map, self.config, self.calib, self.caps,
+                    noise=self.swt_noise() if self.swt_noise is not None else None,
                 )
                 self.swt.feature_tracking_map = ft_map
                 self._publish(fid)
@@ -141,6 +149,8 @@ class Frontend:
         t, q, p, v, bg, ba, last_id = self.swt.get_latest_state()
         self.latest_optimized = (t, last_id, q, p, v, bg, ba)
         self.feature_tracker.refresh_from_optimized()
+        if self.on_publish is not None:
+            self.on_publish(self.latest_optimized)
 
     def get_system_state(self) -> SysState:
         if self.initializer is not None:

@@ -9,6 +9,12 @@ THREADING=ON worker model (:35-50: one thread runs the feature tracker, one
 runs the frontend/optimizer) — implemented here as event-driven queues rather
 than 1/5 ms polling loops; `threaded=False` reproduces THREADING=OFF inline
 dispatch (feature_tracker.cpp:113-118, frontend.cpp:68-73).
+
+On a CUDA device each worker runs under `torch.cuda.device(device)`: the
+current device and stream are per-thread state. Both workers launch on that
+device's default stream, so a tensor the tracker thread made is ready, in
+stream order, for the estimator thread's kernels. The host spans
+`worker.tracker` and `worker.estimator` time each worker's work per frame.
 """
 
 from __future__ import annotations
@@ -19,8 +25,10 @@ from collections import deque
 from typing import Optional
 
 import numpy as np
+import torch
 
 from rd_vio_tpu_torch.utils.host import asnp, fetch
+from rd_vio_tpu_torch.utils.metrics import GLOBAL_TIMER as T
 
 from rd_vio_tpu_torch.models import builders
 from rd_vio_tpu_torch.models.map import Frame
@@ -43,7 +51,10 @@ def _propagate(q, p, v, dt, w, a, bg, ba):
 
 
 class Handler:
-    def __init__(self, config, feature_tracker, frontend, threaded: bool = False):
+    def __init__(self, config, feature_tracker, frontend, threaded: bool = False,
+                 device=None):
+        """device: where the workers launch (threaded mode); None or a CPU
+        device runs them without a CUDA device scope."""
         self.config = config
         self.feature_tracker = feature_tracker
         self.frontend = frontend
@@ -68,16 +79,26 @@ class Handler:
             # bounded: ingestion blocks rather than letting the tracker race
             # arbitrarily far ahead of the optimizer
             self._ft_queue = queue.Queue(maxsize=4)
+            self.device = torch.device(device) if device is not None else None
             self._ft_worker = threading.Thread(
-                target=self._ft_loop, name="rdvio-feature-tracker", daemon=True
+                target=self._on_device, args=(self._ft_loop,),
+                name="rdvio-feature-tracker", daemon=True
             )
             self._fe_worker = threading.Thread(
-                target=self._fe_loop, name="rdvio-frontend", daemon=True
+                target=self._on_device, args=(self._fe_loop,),
+                name="rdvio-frontend", daemon=True
             )
             self._ft_worker.start()
             self._fe_worker.start()
 
     # -- worker loops (threaded mode) -----------------------------------
+    def _on_device(self, loop):
+        if self.device is not None and self.device.type == "cuda":
+            with torch.cuda.device(self.device):
+                loop()
+        else:
+            loop()
+
     def _ft_loop(self):
         while True:
             frame = self._ft_queue.get()
@@ -92,7 +113,8 @@ class Handler:
                 # after a worker error, keep consuming (so producers never
                 # block forever on the bounded queue) but stop processing
                 if self._worker_error is None and not self._stop.is_set():
-                    self.feature_tracker.track_frame(frame)
+                    with T.time("worker.tracker"):
+                        self.feature_tracker.track_frame(frame)
             except BaseException as e:  # noqa: BLE001 — reported via join()
                 self._record_worker_error(e)
             finally:
@@ -103,7 +125,8 @@ class Handler:
             try:
                 if not self.frontend.wait_for_work(self._stop, timeout=0.2):
                     continue
-                self.frontend.run()
+                with T.time("worker.estimator"):
+                    self.frontend.run()
             except BaseException as e:  # noqa: BLE001 — reported via join()
                 self._record_worker_error(e)
 

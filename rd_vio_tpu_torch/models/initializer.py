@@ -7,13 +7,15 @@ init_imu (367-499: gyro-bias Gauss-Newton, linear gravity/scale/velocity LS,
 S2-tangent gravity refinement), apply_init (517-553), then full VI-BA and
 handoff to the sliding-window tracker.
 
-Port of the JAX package's models/initializer.py, the 8-point path: the
-RANSAC hypothesis banks, the 8-way triangulation scoring and every BA solve
-run on the calibration's device; the tiny linear systems (3x3 gyro bias,
-the (N-1)*6 x (3N+4) gravity LS) run in host NumPy. The RANSACs take their
-Gumbel noise from `noise` (a callable (K, N) -> (K, N) f32 tensor; by
-default a seeded generator on the device), where the JAX package draws it
-from its PRNG key chain.
+Port of the JAX package's models/initializer.py: the RANSAC hypothesis
+banks, the 8-way triangulation scoring and every BA solve run on the
+calibration's device; the tiny linear systems (3x3 gyro bias, the
+(N-1)*6 x (3N+4) gravity LS) and, with `initializer_use_5pt`, the 5-point
+essential RANSAC (ops/essential5.py) run in host NumPy. The device RANSACs
+take their Gumbel noise from `noise` (a callable (K, N) -> (K, N) f32
+tensor; by default a seeded generator on the device), where the JAX package
+draws it from its PRNG key chain; the 5-point RANSAC draws from host seeds
+(config.random, n), as the port's other NumPy RANSACs do.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from rd_vio_tpu_torch.models.quat_np import (
     R_to_q, q_from_two_vectors, qconj, qmul, qrot,
 )
 from rd_vio_tpu_torch.ops import epipolar, homography, ransac
+from rd_vio_tpu_torch.ops.essential5 import ransac_essential_5pt
 from rd_vio_tpu_torch.ops.lie import matrix_to_quat, s2_tangential_basis
 from rd_vio_tpu_torch.ops.triangulate import triangulate_two_view
 from rd_vio_tpu_torch.utils.host import asnp, fetch, to_device
@@ -76,11 +79,6 @@ class Initializer:
         """noise: callable (K, N) -> (K, N) Gumbel noise of one RANSAC's
         hypotheses (default: a GumbelSource seeded with config.random on
         the calibration's device)."""
-        if config.initializer_use_5pt:
-            raise NotImplementedError(
-                "initializer_use_5pt: the 5-point essential solver "
-                "(ops/essential5.py) is not ported yet (ROADMAP queue A, "
-                "essential5)")
         self.config = config
         self.calib = calib
         self.caps = caps
@@ -96,6 +94,7 @@ class Initializer:
             src = ransac.GumbelSource(config.random, self.device)
             noise = lambda k, n: src.draw((k, n))  # noqa: E731
         self._noise = noise
+        self._host_seed_ctr = 0
         # imu-init scratch
         self.bg = np.zeros(3)
         self.ba = np.zeros(3)
@@ -103,6 +102,11 @@ class Initializer:
         self.scale = 1.0
         self.velocities = None
         self._deltas = None
+
+    def _next_seed(self) -> tuple:
+        """Host seed material of the n-th 5-point RANSAC: (config.random, n)."""
+        self._host_seed_ctr += 1
+        return (self.config.random, self._host_seed_ctr)
 
     def _gumbel(self, k: int, n: int) -> torch.Tensor:
         g = self._noise(k, n)
@@ -250,8 +254,17 @@ class Initializer:
         RH1, RH2, TH1, TH2, n1, n2, pure = homography.decompose_homography(resH.model)
         if bool(pure):
             return False  # pure rotation (reference initializer.cpp:188-191)
-        resE = ransac.ransac_essential(self._gumbel(512, Ncap), p1t, p2t, vt, thr)
-        RE1, RE2, TE = epipolar.decompose_essential(resE.model)
+        if cfg.initializer_use_5pt:
+            # Nistér 5-point minimal solver (reference essential.cpp:9-218)
+            # on the host: it runs once per bootstrap attempt
+            E5, _ = ransac_essential_5pt(np.random.default_rng(self._next_seed()), p1p,
+                                         p2p, valid, thr, num_samples=128)
+            if E5 is None:
+                return False
+            RE1, RE2, TE = epipolar.decompose_essential(to_device(E5, dev))
+        else:
+            resE = ransac.ransac_essential(self._gumbel(512, Ncap), p1t, p2t, vt, thr)
+            RE1, RE2, TE = epipolar.decompose_essential(resE.model)
 
         def unit(v):
             return v / torch.clamp(torch.linalg.vector_norm(v), min=1e-12)

@@ -5,10 +5,13 @@ acc, gyro), addAcc/addGyro, transform_world_cam (output pose composed with
 the output extrinsic), state() mapping {0: initializing, 1: tracking,
 2: crash, 3: unknown}, local_map()/keypoints().
 
-Port of the JAX package's models/odometry.py, synchronous mode: every frame
-runs to its end inside add_frame. The estimator runs on `device`, which
-defaults to the image backend's (the card for TorchImageBackend's default);
-the CPU only when asked for.
+Port of the JAX package's models/odometry.py. Synchronous (`threaded=False`):
+every frame runs to its end inside add_frame. Threaded (the reference's
+THREADING=ON model, bench.py's default): the feature tracker and the
+estimator run in two worker threads (models/handler.py); call join() before
+reading results and close() (or use the Odometry as a context manager) when
+done. The estimator runs on `device`, which defaults to the image backend's
+(the card for TorchImageBackend's default); the CPU only when asked for.
 """
 
 from __future__ import annotations
@@ -29,19 +32,18 @@ from rd_vio_tpu_torch.models.quat_np import qmul, qrot
 class Odometry:
     def __init__(self, config: Config, backend, caps: Optional[builders.Caps] = None,
                  threaded: bool = False, device=None,
-                 init_noise: Optional[Callable[[], Callable]] = None):
+                 init_noise: Optional[Callable[[], Callable]] = None,
+                 swt_noise: Optional[Callable[[], Callable]] = None):
         """backend: TorchImageBackend (the device loop on its device) or
         SyntheticBackend (perfect matches on the host). device: where the
         estimator runs; None means the backend's device, or the card for a
         backend without one. A device that differs from the backend's, or
-        the card where there is none, raises. init_noise: see Frontend.
+        the card where there is none, raises. init_noise, swt_noise: see
+        Frontend.
 
-        threaded=True (the reference's THREADING=ON two-stage pipeline) is
-        not ported yet and raises."""
-        if threaded:
-            raise NotImplementedError(
-                "Odometry(threaded=True): the threaded pipeline is not ported "
-                "yet (ROADMAP queue A, threaded run)")
+        threaded=True runs the reference's THREADING=ON pipeline model
+        (handler.cpp:35-50): the feature tracker and the optimizer run in
+        worker threads and overlap. threaded=False is fully synchronous."""
         be_dev = getattr(backend, "device", None)
         if device is None:
             device = be_dev if be_dev is not None else "cuda"
@@ -59,21 +61,48 @@ class Odometry:
         self.feature_tracker = FeatureTracker(config, self.calib, self.caps, backend,
                                               device=device)
         self.frontend = Frontend(self.feature_tracker, config, self.calib, self.caps,
-                                 init_noise=init_noise)
+                                 init_noise=init_noise, swt_noise=swt_noise)
         self.feature_tracker.frontend = self.frontend
-        self.handler = Handler(config, self.feature_tracker, self.frontend)
+        self.handler = Handler(config, self.feature_tracker, self.frontend,
+                               threaded=threaded, device=device)
 
+    # -- pipeline lifecycle ----------------------------------------------
     def join(self):
-        """Finish every ingested frame: finalize the frames the device-loop
-        tracker still holds in flight, then apply any deferred subwindow
-        result so final state reads see the last solve."""
+        """Finish every ingested frame: wait for both workers (threaded),
+        finalize the frames the device-loop tracker still holds in flight
+        and wait again, then apply any deferred subwindow result so final
+        state reads see the last solve. Re-raises a worker's first error as
+        a RuntimeError chained from it."""
+        self.handler.join()
         self.feature_tracker.flush()
+        self.handler.join()
+        self._drain_swt()
+
+    def close(self):
+        """join(), then stop the workers (each given 10 s to exit). A
+        worker's error is raised here too, after the workers were told to
+        stop."""
+        if self.handler.threaded:
+            try:
+                self.join()
+            except RuntimeError:
+                pass  # raised again by handler.close below
+            self.handler.close()
+        else:
+            self.join()
+        self._drain_swt()
+
+    def _drain_swt(self):
+        """Apply any deferred subwindow result so final state reads see the
+        last solve (join has left no estimator work in flight)."""
         swt = self.frontend.swt
         if swt is not None:
             swt.drain_pending()
 
-    def close(self):
-        self.join()
+    def healthy(self) -> bool:
+        """False once a pipeline worker has failed (threaded mode): frames
+        ingested after that are not processed."""
+        return self.handler._worker_error is None
 
     def __enter__(self):
         return self

@@ -8,10 +8,14 @@ Behavioral reference: the reference's src/rdvio/src/sliding_window_tracker.cpp
 refine_window :226-337, slide_window :339-347, refine_subwindow :349-444,
 judge_track_status :557-718, update_track_status :720-769).
 
-Port of the JAX package's models/sliding_window_tracker.py, the main
-path's branches: no sharded BA (`dist_mesh`), the NumPy PARSAC twins
-(`parsac_host_masks=True`; the device PARSAC raises NotImplementedError) and
-the synchronous keyframe step (`sliding_window_keyframe_async=False`).
+Port of the JAX package's models/sliding_window_tracker.py: no sharded BA
+(`dist_mesh`) and the synchronous keyframe step only
+(`sliding_window_keyframe_async=False`). PARSAC runs as the NumPy twins
+(`parsac_host_masks=True`, host seeds) or as the device programs of
+ops/parsac.py (`parsac_host_masks=False`): the IMU-PARSAC judge and the
+chained 2D-2D keyframe check, each fed Gumbel noise from `noise`, with the
+bin confidences kept on the device between frames and one mask fetch per
+call.
 
 Host Python drives the branchy state machine; the numerics (triangulation,
 BA, marginalization) run as the device programs of models/builders.py on
@@ -24,11 +28,13 @@ estimation/marginalization.py).
 
 from __future__ import annotations
 
+import collections
 import logging
-
-from typing import Optional
+import threading
+from typing import Callable, Optional
 
 import numpy as np
+import torch
 
 from rd_vio_tpu_torch.estimation import factors as F
 from rd_vio_tpu_torch.models import builders
@@ -37,18 +43,39 @@ from rd_vio_tpu_torch.models.map import (
     TT_STATIC, TT_TRASH, TT_TRIANGULATED, TT_VALID,
 )
 from rd_vio_tpu_torch.models.quat_np import q_to_R, qconj, qmul, qrot
-from rd_vio_tpu_torch.ops import parsac_np
-from rd_vio_tpu_torch.utils.host import fetch, fetch_async
+from rd_vio_tpu_torch.ops import parsac, parsac_np
+from rd_vio_tpu_torch.ops.ransac import GumbelSource
+from rd_vio_tpu_torch.utils.host import fetch, fetch_async, to_device
 from rd_vio_tpu_torch.utils.metrics import GLOBAL_TIMER as T
 
-_DEVICE_PARSAC = ("parsac_host_masks=False: the device PARSAC programs "
-                  "(ops/parsac.py) are not ported yet (ROADMAP queue A, "
-                  "device PARSAC)")
+# calls of the device PARSAC programs: "judge" (imu_parsac_pnp) and "chain"
+# (parsac_essential_chain), counted under _parsac_lock
+PARSAC_STATS: collections.Counter = collections.Counter()
+_parsac_lock = threading.Lock()
+# set CAPTURE_PARSAC to keep, in CAPTURED_PARSAC["judge" / "chain"], the
+# first device call's arguments (noise included) and result, on the CPU
+CAPTURE_PARSAC = False
+CAPTURED_PARSAC: dict = {}
+
+
+def _record_parsac(kind: str, args: dict, out):
+    with _parsac_lock:
+        PARSAC_STATS[kind] += 1
+        if CAPTURE_PARSAC and kind not in CAPTURED_PARSAC:
+            cpu = lambda t: t.cpu() if isinstance(t, torch.Tensor) else t  # noqa: E731
+            CAPTURED_PARSAC[kind] = ({k: cpu(v) for k, v in args.items()},
+                                     tuple(cpu(t) for t in out))
 
 
 class SlidingWindowTracker:
     def __init__(self, keyframe_map: Map, config, calib: builders.CalibArrays,
-                 caps: builders.Caps):
+                 caps: builders.Caps,
+                 noise: Optional[Callable[[tuple], torch.Tensor]] = None):
+        """noise (device PARSAC): callable shape -> standard Gumbel noise
+        (f32) of that shape, (H, N) for a judge call and (K, H, N) for a
+        chain of K checks; default a GumbelSource on the calibration's
+        device seeded with config.random (the JAX tracker roots its key
+        chain in PRNGKey(config.random))."""
         import dataclasses
 
         if getattr(config, "sliding_window_keyframe_async", False):
@@ -94,9 +121,21 @@ class SlidingWindowTracker:
         # refreshes the host mirror exactly)
         self._dev_sub = None
         self.m_th = 3.0  # adaptive epipolar threshold (px)
-        self.bin_conf_imu = parsac_np.default_bin_confidences_np()
-        self.bin_conf_2d2d = parsac_np.default_bin_confidences_np()
+        if not config.parsac_host_masks:
+            # the confidences stay on the device between frames
+            self.bin_conf_imu = parsac.default_bin_confidences(calib.device)
+            self.bin_conf_2d2d = parsac.default_bin_confidences(calib.device)
+            self._noise = noise or GumbelSource(config.random, calib.device).draw
+        else:
+            self.bin_conf_imu = parsac_np.default_bin_confidences_np()
+            self.bin_conf_2d2d = parsac_np.default_bin_confidences_np()
         self._host_seed_ctr = 0
+
+    def _gumbel(self, shape) -> torch.Tensor:
+        g = self._noise(shape)
+        if isinstance(g, torch.Tensor):
+            return g.to(self.calib.device)
+        return to_device(np.asarray(g, np.float32), self.calib.device)
 
     def _next_seed(self) -> tuple:
         """Host-side seed material for the NumPy PARSAC twins (the same
@@ -1271,7 +1310,23 @@ class SlidingWindowTracker:
             self.bin_conf_imu = res.bin_confidences
             mask = res.inlier_mask
         else:
-            raise NotImplementedError(_DEVICE_PARSAC)
+            dev = self.calib.device
+            with T.time("swt.judge.parsac"):
+                args = dict(
+                    gumbel=self._gumbel((cfg.parsac_judge_hypotheses, self.caps.L)),
+                    x_world=to_device(P3D, dev), p_norm=to_device(P2D, dev),
+                    valid=to_device(valid, dev), lens=to_device(lens, dev),
+                    prior_R=to_device(np.asarray(Rcw, np.float64), dev),
+                    prior_t=to_device(np.asarray(tcw, np.float64), dev),
+                    bin_conf_prior=self.bin_conf_imu,
+                    threshold=cfg.parsac_threshold / Km[0, 0],
+                    dynamic_prob=cfg.parsac_dynamic_probability,
+                    norm_scale=cfg.parsac_norm_scale,
+                )
+                res = parsac.imu_parsac_pnp(**args)
+                self.bin_conf_imu = res.bin_confidences
+                mask = fetch(res.inlier_mask)
+            _record_parsac("judge", args, res)
 
         # epipolar-distance separation between inliers/outliers (reference
         # :643-700) using the IMU-predicted relative pose
@@ -1396,7 +1451,20 @@ class SlidingWindowTracker:
                 )
                 self.bin_conf_2d2d = conf
             else:
-                raise NotImplementedError(_DEVICE_PARSAC)
+                dev = self.calib.device
+                with T.time("swt.status.parsac"):
+                    args = dict(
+                        gumbel=self._gumbel((Kc, cfg.parsac_judge_hypotheses, Ncap)),
+                        p1=to_device(P1, dev), p2=to_device(P2, dev),
+                        valid=to_device(VAL, dev), enable=to_device(EN, dev),
+                        bin_conf_prior=self.bin_conf_2d2d,
+                        threshold=self.m_th / Km[0, 0],
+                        norm_scale=cfg.parsac_norm_scale,
+                    )
+                    masks_dev, conf_dev = parsac.parsac_essential_chain(**args)
+                    self.bin_conf_2d2d = conf_dev
+                    masks = fetch(masks_dev)
+                _record_parsac("chain", args, (masks_dev, conf_dev))
             for row in range(Kc):
                 kp_idx = kp_rows[row]
                 if kp_idx is None:

@@ -57,6 +57,28 @@ def essential_geometric_error(E, p1, p2):
     return r * r / torch.clamp(denom, min=1e-18)
 
 
+def essential_geometric_error_sym(E, p1, p2):
+    """Symmetric epipolar error: the mean of the two directed line distances
+    (the tracker's epipolar check, reference sliding_window_tracker.cpp:469-500
+    computes both directions)."""
+    e12 = essential_geometric_error(E, p1, p2)
+    e21 = essential_geometric_error(E.transpose(-1, -2), p2, p1)
+    return 0.5 * (e12 + e21)
+
+
+def essential_from_pose(R_21, t_21):
+    """E with p2^T E p1 = 0 for x_2 = R_21 x_1 + t_21: E = [t]x R."""
+    tx, ty, tz = t_21[..., 0], t_21[..., 1], t_21[..., 2]
+    z = torch.zeros_like(tx)
+    T_hat = torch.stack(
+        [torch.stack([z, -tz, ty], dim=-1),
+         torch.stack([tz, z, -tx], dim=-1),
+         torch.stack([-ty, tx, z], dim=-1)],
+        dim=-2,
+    )
+    return T_hat @ R_21
+
+
 def decompose_essential(E):
     """E -> two rotations + translation direction (reference essential.cpp:222-283).
 

@@ -1,6 +1,7 @@
 """Per-frame RANSAC masks of the frontend (reference frame.cpp:108-131).
 
-`ft_masks` is the counterpart of the JAX package's ops/frontend_step.ft_masks:
+`ft_masks` is the counterpart of the JAX package's ops/frontend_step.ft_masks
+(the body the device loop shares) and `ft_step` of its standalone program:
 an essential-RANSAC match mask plus a rotation RANSAC whose inliers give the
 70th-percentile misalignment of the pure-rotation detector. The JAX version
 splits one PRNG key into an (essential, rotation) pair; here that pair of
@@ -48,3 +49,11 @@ def ft_masks(b1, b2, valid, noise, rot_thresh):
         "mask": status,
         "misalign": misalign,
     }
+
+
+def ft_step(b1, b2, valid, noise, rot_thresh):
+    """The standalone per-frame mask program (the host-mask tracker's
+    `feature_tracker_host_masks=False` branch): `ft_masks` on the padded
+    (KP_CAP,) matches. The track-length-priority Poisson re-filter
+    (reference frame.cpp:134-161) runs on the host after the fetch."""
+    return ft_masks(b1, b2, valid, noise, rot_thresh)

@@ -58,9 +58,11 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
 MAX_LEVELS = 8  # pyramid levels the fused kernel's argument struct holds
 
 # kernel launches made by `lk_level` / `lk_level_iters` and by
-# `lk_track_fwd_rev` (one per call on CUDA tensors)
+# `lk_track_fwd_rev` (one per call on CUDA tensors); incremented under
+# `_count_lock` (a threaded Odometry tracks in a worker thread)
 launches = 0
 fwd_rev_launches = 0
+_count_lock = threading.Lock()
 # seconds the last `load_kernel` spent compiling (0.0 when the .so was there)
 build_seconds = 0.0
 
@@ -327,7 +329,8 @@ def _lk_level(img_prev, img_next, pts, guess, valid, iters, eps, want_iters):
         )
     if rc != 0:
         raise RuntimeError(f"lk_level: CUDA kernel launch failed (error {rc})")
-    launches += 1
+    with _count_lock:
+        launches += 1
     return tracked, min_eig, n_iter
 
 
@@ -457,5 +460,6 @@ def lk_track_fwd_rev(pyr_prev, pyr_next, pts_prev, pts_pred, valid,
         )
     if rc != 0:
         raise RuntimeError(f"{fn}: CUDA kernel launch failed (error {rc})")
-    fwd_rev_launches += 1
+    with _count_lock:
+        fwd_rev_launches += 1
     return tracked, status

@@ -19,7 +19,7 @@ from typing import NamedTuple
 
 import torch
 
-from rd_vio_tpu_torch.ops import epipolar, homography, wahba
+from rd_vio_tpu_torch.ops import epipolar, homography, pnp, wahba
 
 CHI2_1DOF = 3.84  # reference stereo.cpp:59 (t1)
 CHI2_2DOF = 5.99  # reference stereo.cpp:85,113 (t2)
@@ -53,14 +53,18 @@ class GumbelSource:
         return -torch.log(-torch.log(torch.clamp(u, min=tiny)))
 
 
-def sample_indices(gumbel, valid, sample_size: int):
+def sample_indices(gumbel, valid, sample_size: int, logits=None):
     """Minimal sample index sets without replacement, one per row of the
-    (K, N) Gumbel noise: the top `sample_size` of noise + uniform logits.
-    Invalid points get -inf logits and are never drawn; ties go to the lower
-    index, as `lax.top_k` does.
+    (K, N) Gumbel noise: the top `sample_size` of noise + per-point logits
+    (uniform by default; PARSAC passes its bin-weighted ones). Invalid points
+    get -inf logits and are never drawn; ties go to the lower index, as
+    `lax.top_k` does. The sum is taken in f32, as in the JAX package.
 
     Returns (K, M) int64 indices."""
-    base = torch.where(valid, 0.0, float("-inf"))
+    if logits is None:
+        base = torch.where(valid, 0.0, float("-inf"))
+    else:
+        base = torch.where(valid, logits, float("-inf"))
     scores = gumbel.to(torch.float32) + base[None, :].to(torch.float32)
     idx = torch.sort(scores, dim=-1, descending=True, stable=True).indices
     return idx[:, :sample_size]
@@ -108,6 +112,18 @@ def ransac_homography(gumbel, p1, p2, valid, threshold: float):
     err = homography.homography_geometric_error(H, p1[None], p2[None]) + \
         homography.homography_geometric_error(Hinv, p2[None], p1[None])
     return _best_by_count(H, err, 2.0 * CHI2_2DOF * threshold ** 2, valid)
+
+
+def ransac_pnp(gumbel, x_world, p_norm, valid, threshold: float):
+    """find_pnp_matrix (reference pnp.h:96-131): reprojection error on the
+    normalized plane with bound 2*t2*threshold^2. gumbel: (K, N) noise.
+    Returns model (R|t) as (3, 4)."""
+    idx = sample_indices(gumbel, valid, 6)
+    R, t = pnp.solve_pnp_dlt(x_world[idx], p_norm[idx])  # (K,3,3), (K,3)
+    err = pnp.pnp_reprojection_error(R, t, x_world[None], p_norm[None])
+    err = torch.where(torch.isfinite(err), err, 1e18)
+    models = torch.cat([R, t[..., None]], dim=-1)
+    return _best_by_count(models, err, 2.0 * CHI2_2DOF * threshold ** 2, valid)
 
 
 def _adjugate_3x3(M):

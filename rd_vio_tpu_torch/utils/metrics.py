@@ -19,15 +19,17 @@ from typing import Dict, Optional
 class StageTimer:
     """Per-stage wall-clock ring buffers (reference unique_timer.h analogue).
 
-    `suppressed()` disables recording for the current thread: warmup shadow
-    pipelines (utils/warmup.py) share the jitted-program caches with the real
-    pipeline but must not pollute its stage statistics."""
+    `suppressed()` disables recording for the current thread. Threads may
+    time spans at once (a threaded Odometry's two workers): each span's
+    start lives on its own thread's stack, and the ring buffers are written
+    and read under a lock."""
 
     _tls = threading.local()
 
     def __init__(self, window: int = 256):
         self.window = window
         self.samples: Dict[str, collections.deque] = {}
+        self._lock = threading.Lock()
 
     @classmethod
     @contextlib.contextmanager
@@ -49,17 +51,21 @@ class StageTimer:
             yield
         finally:
             dt = time.perf_counter() - t0
-            self.samples.setdefault(
-                stage, collections.deque(maxlen=self.window)
-            ).append(dt)
+            with self._lock:
+                self.samples.setdefault(
+                    stage, collections.deque(maxlen=self.window)
+                ).append(dt)
 
     def reset(self):
         """Drop all recorded samples (bench phase boundaries)."""
-        self.samples.clear()
+        with self._lock:
+            self.samples.clear()
 
     def stats(self) -> Dict[str, dict]:
+        with self._lock:
+            snapshot = {k: list(dq) for k, dq in self.samples.items()}
         out = {}
-        for k, dq in self.samples.items():
+        for k, dq in snapshot.items():
             if not dq:
                 continue
             xs = sorted(dq)
@@ -99,7 +105,9 @@ class DeviceStageTimer:
     `time(stage)` records one event on the current stream before the block
     and one after it; nothing waits. `stats()` synchronises once and reads
     every pair, so a timed pipeline keeps its asynchrony. Host wall time of
-    the same blocks is what `StageTimer` measures."""
+    the same blocks is what `StageTimer` measures. A span's two events are
+    recorded by the thread that runs the block, on that thread's current
+    stream."""
 
     def __init__(self):
         self.pairs: Dict[str, list] = {}

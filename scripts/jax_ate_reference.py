@@ -1,6 +1,6 @@
 """ATE of the JAX package on the main path's rendered sequence, on the CPU.
 
-    JAX_PLATFORMS=cpu python scripts/jax_ate_reference.py [n_frames] [--out FILE]
+    JAX_PLATFORMS=cpu python scripts/jax_ate_reference.py [n_frames] [--device-parsac] [--out FILE]
 
 Runs `rd_vio_tpu.models.odometry.Odometry` synchronously (threaded=False) with
 the JaxImageBackend over the first `n_frames` (default 160) frames of
@@ -17,6 +17,13 @@ SE3-aligned ATE of the estimates collected so far (`utils.trajectory.ate_rmse`,
 bench.py's definition), the tracked frames, the fully fused keyframe steps
 (`builders.KF_FUSED_COUNT`) and the system state. chip_smoke.py's phase F
 holds the PyTorch port's ATE against the line of its N.
+
+`--device-parsac` runs the IMU-PARSAC judge and the 2D-2D keyframe check as
+the device programs (`parsac_host_masks=False`: `ops/parsac.imu_parsac_pnp`
+and `parsac_essential_chain`) instead of their NumPy twins, and each line
+also gives the calls of the two programs so far (`judge_calls`,
+`chain_calls`); chip_smoke.py's phase G holds the port's threaded run
+against the line of its N.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from rd_vio_tpu.datasets.renderer import SequenceRenderer  # noqa: E402
 from rd_vio_tpu.models import builders  # noqa: E402
 from rd_vio_tpu.models.image_backend import JaxImageBackend  # noqa: E402
 from rd_vio_tpu.models.odometry import Odometry  # noqa: E402
+from rd_vio_tpu.ops import parsac  # noqa: E402
 from rd_vio_tpu.utils.trajectory import ate_rmse  # noqa: E402
 
 CAPS = builders.Caps(W=15, L=256, O=2560, Fi=16, R=128, IMU=64, IMU_KF=384)
@@ -68,11 +76,22 @@ def make_config(K) -> Config:
 def main(argv):
     n_frames = int(argv[0]) if argv and not argv[0].startswith("-") else 160
     out = argv[argv.index("--out") + 1] if "--out" in argv else None
+    device_parsac = "--device-parsac" in argv
+    calls = {"judge_calls": 0, "chain_calls": 0}
+    for name, key in (("imu_parsac_pnp", "judge_calls"),
+                      ("parsac_essential_chain", "chain_calls")):
+        def counted(*a, _fn=getattr(parsac, name), _key=key, **kw):
+            calls[_key] += 1
+            return _fn(*a, **kw)
+
+        # the tracker calls both through the module (parsac.<name>)
+        setattr(parsac, name, counted)
     seq = synthetic.generate(duration=8.0, n_landmarks=1200, max_keypoints=150,
                              excitation=0.05)
     rend = SequenceRenderer(seq, image_size=(752, 480))
     frames = [np.asarray(rend.render(i), np.uint8) for i in range(n_frames)]
     cfg = make_config(rend.K)
+    cfg.parsac_host_masks = not device_parsac
     odo = Odometry(cfg, JaxImageBackend(cfg, kp_cap=384), caps=CAPS, threaded=False)
     gt_by_t = {round(t, 6): p for t, p in zip(seq.t_frame, seq.p_wb)}
     events = sorted([(t, 1, i) for i, t in enumerate(seq.t_imu)]
@@ -97,6 +116,7 @@ def main(argv):
             ate = float(ate_rmse(np.asarray(est_p), gt))
         rows.append({"n": n, "state": odo.state(), "tracked": len(est_p),
                      "kf_fused": builders.KF_FUSED_COUNT.n, "ate_m": ate,
+                     **(calls if device_parsac else {}),
                      "wall_s": round(time.perf_counter() - t0, 1)})
         print(json.dumps(rows[-1]), flush=True)
         if n >= n_frames:

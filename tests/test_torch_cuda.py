@@ -1,8 +1,9 @@
 """The LK kernels on the card: the fused forward + reverse kernel and the
 per-level kernel against their plain versions, launch counting, a keypoint
 set that trips every status rule, and the wrappers' input checks; and the
-window VI-BA solve on the card against the same solve on the CPU; and a
-few frames of Odometry (the synthetic backend) on the card. Every
+window VI-BA solve on the card against the same solve on the CPU; a few
+frames of Odometry (the synthetic backend) on the card, synchronous, and
+threaded with the device PARSAC, which is also held against the CPU. Every
 test is marked `cuda` and skips where there is no CUDA device; this file
 imports no JAX, so on a GPU machine without JAX it runs as
 
@@ -235,3 +236,76 @@ def test_odometry_runs_on_the_card(dev):
     gt_by_t = {round(t, 6): p for t, p in zip(seq.t_frame, seq.p_wb)}
     gt = np.stack([gt_by_t[round(t, 6)] for t in est_t])
     assert ate_rmse(np.asarray(est_p), gt) < 0.05
+
+
+@pytest.mark.cuda
+def test_threaded_device_parsac_odometry_on_the_card(dev):
+    """The threaded Odometry with the device PARSAC (parsac_host_masks=False)
+    on the card, the synthetic backend: the workers run, every frame after
+    the first tracked one is estimated, the device judge ran, the ATE under
+    0.05 m, both workers exit on close(). Then imu_parsac_pnp on the card
+    against the same call on the CPU: masks within 2 slots, confidences
+    within 1e-9 (atomic against sequential f64 bin sums)."""
+    import torch
+
+    from rd_vio_tpu_torch.config import Config
+    from rd_vio_tpu_torch.datasets import synthetic
+    from rd_vio_tpu_torch.datasets.synthetic_problems import pnp_scene
+    from rd_vio_tpu_torch.models import builders
+    from rd_vio_tpu_torch.models import sliding_window_tracker as swt
+    from rd_vio_tpu_torch.models.feature_tracker import SyntheticBackend
+    from rd_vio_tpu_torch.models.odometry import Odometry
+    from rd_vio_tpu_torch.ops import parsac
+    from rd_vio_tpu_torch.ops.ransac import GumbelSource
+    from rd_vio_tpu_torch.utils.trajectory import ate_rmse
+
+    seq = synthetic.generate(duration=2.4, n_landmarks=1200, max_keypoints=150, seed=648)
+    cfg = Config()
+    cfg.camera_intrinsic = seq.K_mat
+    cfg.sliding_window_size = 4
+    cfg.ransac_hypotheses = 128
+    cfg.parsac_flag = True
+    cfg.parsac_dynamic_probability = 0.15
+    cfg.parsac_threshold = 1.0
+    cfg.parsac_host_masks = False
+    judged = swt.PARSAC_STATS["judge"]
+    odo = Odometry(cfg, SyntheticBackend(seq), caps=builders.Caps(
+        W=13, L=256, O=1536, Fi=16, R=128, IMU=64, IMU_KF=384), threaded=True)
+    published = []
+    odo.frontend.on_publish = lambda lo: published.append((lo[0], lo[3].copy()))
+    events = sorted([(t, 1, i) for i, t in enumerate(seq.t_imu)]
+                    + [(t, 0, i) for i, t in enumerate(seq.t_frame)])
+    try:
+        for t, kind, i in events:
+            if kind == 1:
+                odo.add_motion(t, seq.gyro[i], seq.accel[i])
+            else:
+                odo.add_frame(t, i)
+        odo.join()
+        assert odo.handler.get_latest_state()[0] == seq.t_frame[-1]
+    finally:
+        odo.close()
+    assert not odo.handler._ft_worker.is_alive() and not odo.handler._fe_worker.is_alive()
+    assert swt.PARSAC_STATS["judge"] > judged
+    est_t = np.array([t for t, _ in published])
+    first = int(np.flatnonzero(np.isclose(seq.t_frame, est_t[0]))[0])
+    np.testing.assert_array_equal(est_t, seq.t_frame[first:])
+    est_p = np.stack([p for _, p in published])
+    gt_by_t = {round(t, 6): p for t, p in zip(seq.t_frame, seq.p_wb)}
+    assert ate_rmse(est_p, np.stack([gt_by_t[round(t, 6)] for t in est_t])) < 0.05
+
+    sc = pnp_scene(4, n=256)
+    out = {}
+    for d in ("cpu", dev):
+        t = lambda a: torch.from_numpy(np.asarray(a)).to(d)  # noqa: E731
+        g = GumbelSource(5, "cpu").draw((32, 256)).to(d)
+        out[str(d)] = parsac.imu_parsac_pnp(
+            g, t(sc["x_world"]), t(sc["p_norm"]), t(sc["valid"]), t(sc["lens"]),
+            t(sc["R_cw"]), t(sc["t_cw"]), parsac.default_bin_confidences(d),
+            threshold=1.0 / 460.0, dynamic_prob=0.15)
+    cpu, card = out["cpu"], out[str(dev)]
+    assert card.inlier_mask.device.type == "cuda"
+    assert int((card.inlier_mask.cpu() != cpu.inlier_mask).sum()) <= 2
+    assert bool(card.prior_ok.cpu()) == bool(cpu.prior_ok)
+    assert float((card.bin_confidences.cpu() - cpu.bin_confidences).abs().max()) <= 1e-9
+    assert int(cpu.inlier_count) > 0.5 * sc["valid"].sum()

@@ -50,7 +50,8 @@ def _check_imports_without_jax():
     assert "rd_vio_tpu_torch.models.handler" in mods
     for m in ("models.odometry", "models.frontend", "models.initializer",
               "models.sliding_window_tracker", "models.builders", "ops.homography",
-              "ops.parsac_np", "ops.frontend_step_np", "utils.trajectory"):
+              "ops.parsac_np", "ops.frontend_step_np", "utils.trajectory",
+              "ops.parsac", "ops.pnp", "ops.essential5"):
         assert f"rd_vio_tpu_torch.{m}" in mods, m
     code = (
         "import sys, importlib\n"
@@ -116,15 +117,33 @@ def _check_entry_points_default_to_the_card():
     assert builders_t.CalibArrays.from_config(cfg, "cpu").tree.cov_w.device.type == "cpu"
     assert inspect.signature(Odometry).parameters["device"].default is None
     assert not torch.cuda.is_available()
-    for kw in ({}, {"device": "cuda"}):
+    # threaded too: no fall-back to the CPU, and no worker thread started
+    import threading
+
+    n_threads = threading.active_count()
+    for kw in ({}, {"device": "cuda"}, {"threaded": True},
+               {"threaded": True, "device": "cuda"}):
         try:
             Odometry(cfg, SyntheticBackend(None), **kw)
         except RuntimeError as e:
             assert "no CUDA device" in str(e)
         else:
             raise AssertionError(f"Odometry({kw}) made without a card")
+    assert threading.active_count() == n_threads
     odo = Odometry(cfg, SyntheticBackend(None), device="cpu")
     assert odo.calib.tree.cov_w.device.type == "cpu"
+    # the branches the port refused before now run: the threaded pipeline,
+    # the device PARSAC, the 5-point initializer and the device mask program
+    # of the host-mask tracker; a threaded Odometry's workers exit on close()
+    import dataclasses
+
+    all_on = dataclasses.replace(cfg, parsac_host_masks=False, initializer_use_5pt=True,
+                                 feature_tracker_host_masks=False)
+    odo = Odometry(all_on, SyntheticBackend(None), device="cpu", threaded=True)
+    workers = (odo.handler._ft_worker, odo.handler._fe_worker)
+    assert all(w.is_alive() for w in workers) and odo.healthy()
+    odo.close()
+    assert not any(w.is_alive() for w in workers)
     assert Odometry(cfg, on_cpu).device == torch.device("cpu")
     try:
         Odometry(cfg, on_cpu, device="cuda")
@@ -132,6 +151,46 @@ def _check_entry_points_default_to_the_card():
         pass
     else:
         raise AssertionError("Odometry on another device than its backend")
+
+
+def _check_counters_under_threads():
+    """What a threaded Odometry's two workers write at once: StageTimer's
+    ring buffers, builders.PROGRAM_STATS (through _count) and the parsac
+    call counts. 12 threads (more than the cores) x 200 updates each with a
+    1 us switch interval: no update is lost."""
+    import threading
+
+    from rd_vio_tpu_torch.models import sliding_window_tracker as swt
+    from rd_vio_tpu_torch.utils.metrics import StageTimer
+
+    timer = StageTimer(window=10 ** 6)
+    builders_t.PROGRAM_STATS.pop("stress", None)
+    judged = swt.PARSAC_STATS["judge"]
+
+    def work():
+        for _ in range(200):
+            with timer.time("stress"):
+                builders_t._count("stress", lambda: None)
+            swt._record_parsac("judge", {}, ())
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work) for _ in range(12)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(th.is_alive() for th in threads)
+    assert timer.stats()["stress"]["n"] == 12 * 200
+    assert builders_t.PROGRAM_STATS.pop("stress")["calls"] == 12 * 200
+    assert swt.PARSAC_STATS["judge"] - judged == 12 * 200
+
+
+def test_counters_are_thread_safe(child):
+    child(_check_counters_under_threads)
 
 
 def _in_child():

@@ -1,5 +1,5 @@
 """Port parity of the slice as a whole: `Odometry` with the perfect-match
-synthetic backend on the CPU.
+synthetic backend on the CPU, synchronous and threaded.
 
 The JAX package's Odometry runs in a spawned process that keeps the
 persistent compilation cache (`jax_side`, tests/test_torch_image.py; with
@@ -10,9 +10,19 @@ the first keyframe after the initialization on) and PARSAC on. Everything
 random is shared: the feature tracker's mask RANSAC and PARSAC draw from the
 same host seeds in both packages, and the port's Initializer is fed the
 Gumbel noise of the JAX Initializer's key chain.
+
+The threaded check runs the JAX package synchronously with the device
+PARSAC (`parsac_host_masks=False`) and the port threaded with its device
+PARSAC, fed the JAX sliding-window tracker's key chain (`JaxSwtNoise`). A
+threaded frontend skips frames while it initializes (Frontend.run takes the
+oldest pending frame and drops the rest), so it may start tracking a few
+frames later; from then on every frame is estimated. A last check makes the
+tracker worker fail and holds the pipeline to surfacing that error.
 """
 
 import numpy as np
+import jax
+import jax.numpy as jnp
 
 from rd_vio_tpu.config import Config as ConfigJ
 from rd_vio_tpu.datasets import synthetic as synth_j
@@ -34,6 +44,26 @@ CAPS = dict(W=13, L=256, O=1536, Fi=16, R=128, IMU=64, IMU_KF=384)
 DURATION_S = 2.3
 ATE_BOUND_M = 0.05  # tests/test_e2e_synthetic.py's bound
 ATE_DIFF_M = 0.005
+# the threaded port against the synchronous JAX run
+THREADED_ATE_DIFF_M = 0.01
+THREADED_INIT_FRAMES = 4  # first tracked frames (the first estimate's) within 4
+
+
+class JaxSwtNoise:
+    """The Gumbel noise of the JAX sliding-window tracker's key chain,
+    rooted in PRNGKey(seed): one split per device-PARSAC call; a chain of K
+    checks splits that key again into K, one (H, N) draw each, as its scan
+    does."""
+
+    def __init__(self, seed):
+        self.key = jax.random.PRNGKey(seed)
+
+    def __call__(self, shape):
+        self.key, sub = jax.random.split(self.key)
+        if len(shape) == 3:
+            return np.stack([np.array(jax.random.gumbel(k, shape[1:], jnp.float32))
+                             for k in jax.random.split(sub, shape[0])])
+        return np.array(jax.random.gumbel(sub, shape, jnp.float32))
 
 
 def make_config(K):
@@ -111,3 +141,117 @@ def _jax_run():
 
 def test_odometry_matches_jax(child, jax_side):
     child(_check_port, *jax_side(_jax_run))
+
+
+def _jax_run_device_parsac():
+    """The JAX run with the device PARSAC; in a `jax_side` process that ran
+    `_jax_run` it reuses that run's compiled programs but the two PARSAC
+    ones."""
+    seq = _seq()
+    cfg = make_config(seq.K_mat)
+    cfg.parsac_host_masks = False
+    odo = OdometryJ(cfg, SyntheticBackendJ(seq), caps=builders_j.Caps(**CAPS))
+    states, est_t, est_p, n_kf = run(odo, seq, builders_j)
+    assert 1 in states and n_kf >= 1, (states, n_kf)
+    first = int(np.flatnonzero(np.isclose(seq.t_frame, est_t[0]))[0])
+    return cfg, dict(first=first, tracked=len(est_p), ate=_ate(seq, est_t, est_p, ate_rmse_j))
+
+
+def _check_port_threaded(cfg_j, want):
+    """Threaded, device PARSAC: the first tracked frame within
+    THREADED_INIT_FRAMES of JAX's, every later frame estimated (after
+    join() the latest state is the last frame's), the ATEs within
+    THREADED_ATE_DIFF_M of each other and both under ATE_BOUND_M."""
+    seq = _seq()
+    cfg = convert.config_from(cfg_j)
+    assert not cfg.parsac_host_masks
+    odo = OdometryT(cfg, SyntheticBackendT(seq), caps=builders_t.Caps(**CAPS), device="cpu",
+                    threaded=True, init_noise=lambda: JaxKeyNoise(cfg.random),
+                    swt_noise=lambda: JaxSwtNoise(cfg.random))
+    published = []
+    odo.frontend.on_publish = lambda lo: published.append((lo[0], lo[3].copy()))
+    from rd_vio_tpu_torch.models import sliding_window_tracker as swt_t
+
+    judged = swt_t.PARSAC_STATS["judge"]
+    try:
+        events = sorted([(t, 1, i) for i, t in enumerate(seq.t_imu)]
+                        + [(t, 0, i) for i, t in enumerate(seq.t_frame)])
+        for t, kind, i in events:
+            if kind == 1:
+                odo.add_motion(t, seq.gyro[i], seq.accel[i])
+            else:
+                odo.add_frame(t, i)
+        odo.join()
+        assert odo.healthy()
+        assert odo.handler.get_latest_state()[0] == seq.t_frame[-1]
+    finally:
+        odo.close()
+    assert swt_t.PARSAC_STATS["judge"] > judged, "the device judge never ran"
+    assert published, "the port never initialized"
+    est_t = np.array([t for t, _ in published])
+    first = int(np.flatnonzero(np.isclose(seq.t_frame, est_t[0]))[0])
+    assert abs(first - want["first"]) <= THREADED_INIT_FRAMES, (first, want["first"])
+    np.testing.assert_array_equal(est_t, seq.t_frame[first:])  # every frame after it
+    est_p = np.stack([p for _, p in published])
+    assert np.isfinite(est_p).all()
+    ate = _ate(seq, est_t, est_p, ate_rmse)
+    assert ate < ATE_BOUND_M and want["ate"] < ATE_BOUND_M, (ate, want["ate"])
+    assert abs(ate - want["ate"]) <= THREADED_ATE_DIFF_M, (ate, want["ate"])
+    assert not odo.handler._ft_worker.is_alive() and not odo.handler._fe_worker.is_alive()
+
+
+def test_threaded_device_parsac_matches_jax(child, jax_side):
+    child(_check_port_threaded, *jax_side(_jax_run_device_parsac))
+
+
+def _check_worker_failure():
+    """The tracker worker raises on its FAIL_AT-th frame: join() raises a
+    RuntimeError chained from that error, close() raises it again within
+    15 s, and both worker threads have exited."""
+    import time
+
+    seq = _seq()
+    cfg = convert.config_from(make_config(seq.K_mat))
+
+    class Failing(Exception):
+        pass
+
+    class FailingBackend(SyntheticBackendT):
+        calls = 0
+
+        def track(self, *a):
+            FailingBackend.calls += 1
+            if FailingBackend.calls == 3:
+                raise Failing("frame 3")
+            return super().track(*a)
+
+    odo = OdometryT(cfg, FailingBackend(seq), caps=builders_t.Caps(**CAPS), device="cpu",
+                    threaded=True)
+    t_last = seq.t_frame[6]
+    events = sorted([(t, 1, i) for i, t in enumerate(seq.t_imu) if t <= t_last + 0.02]
+                    + [(t, 0, i) for i, t in enumerate(seq.t_frame[:7])])
+    for t, kind, i in events:
+        if kind == 1:
+            odo.add_motion(t, seq.gyro[i], seq.accel[i])
+        else:
+            odo.add_frame(t, i)
+    try:
+        odo.join()
+    except RuntimeError as e:
+        assert isinstance(e.__cause__, Failing), repr(e.__cause__)
+    else:
+        raise AssertionError("join() did not raise the worker's error")
+    assert not odo.healthy()
+    t0 = time.perf_counter()
+    try:
+        odo.close()
+    except RuntimeError as e:
+        assert isinstance(e.__cause__, Failing)
+    else:
+        raise AssertionError("close() did not raise the worker's error")
+    assert time.perf_counter() - t0 < 15
+    assert not odo.handler._ft_worker.is_alive() and not odo.handler._fe_worker.is_alive()
+
+
+def test_threaded_worker_failure_surfaces(child):
+    child(_check_worker_failure)
