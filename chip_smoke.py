@@ -70,15 +70,34 @@ reverse track and one level of it) from the checkout, then:
      Prints threaded frames/s beside F's synchronous frames/s over the same
      frame indices, each worker's summed span time, the device judge's span
      beside F's host twin, and the host syncs per judge and per chain call.
+     F and G also check that the native host library (rd_vio_tpu_torch/
+     native, built with g++ from the checkout) was called;
+  H. bench.py's phase 4 in a third process, started first and run at once
+     with A-G (see phase_h): `batch.run_sequences_lockstep` over H_N (4)
+     synthetic sequences with bench.py's config and Caps for H_TICKS (94)
+     ticks, each tick's solves in one batched program per stage. Checks:
+     every sequence tracks with finite poses and never loses tracking; >= 3
+     batched keyframe flushes; per tick at most one batched keyframe
+     program, as many marginalizations, at most one subwindow program; vmap
+     never fell back to a loop over rows; the native library was called;
+     each sequence's ATE within its bound of the JAX package's lockstep CPU
+     run; the first batched keyframe flush replayed row by row through the
+     single-sequence step on the card and as a batch on the CPU (see
+     batch_replay). Prints the steady aggregate frames/s (bench.py's
+     batch_fps_per_chip) beside F's frames/s, kernels per steady tick
+     beside F's kernels per frame, the busy share, LM iterations per
+     batched solve, host syncs per tick and the spans.
 
 Exits non-zero, with no result line, without a CUDA device or when any
 check fails. Before the last line come an `{"estimator": ...}` line with
 phase E's numbers, an `{"odometry": ...}` line with phase F's, an
-`{"odometry_threaded": ...}` line with phase G's, and the `{"kernels": ...}`
+`{"odometry_threaded": ...}` line with phase G's, a `{"batch": ...}` line
+with phase H's, and the `{"kernels": ...}`
 line with both LK kernels' launch counts (the fused kernel's: phases F and G,
 the main path, each counted from 0 just before it; the level kernel's: phase
-D), errors, times and bounds (the estimator adds no kernel: it is
-plain PyTorch, as it is XLA in the JAX package); the last line of stdout
+D), errors, times and bounds (the estimator and the batch runtime add no
+kernel: they are plain PyTorch, as they are XLA in the JAX package, and
+the native library is host C++ in both); the last line of stdout
 is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -984,6 +1003,9 @@ def phase_g(cfg, seq, frames, dev):
     check(level_launches == 0, "phase G: the main path launched the level kernel")
     check(ate <= G_ATE_BOUND_M, f"phase G: ATE {ate:.5f} m > {G_ATE_BOUND_M:.5f} m")
     rec["replay"] = parsac_card_vs_cpu()
+    from rd_vio_tpu_torch import native
+
+    rec["native_calls"] = dict(native.CALLS)  # this process runs G alone
     return rec, launches
 
 
@@ -997,45 +1019,49 @@ def compare_g_with_f(g_rec, f_rec, wall_f):
     twin = f_rec["spans_ms"].get("swt.judge.parsac", {}).get("mean", float("nan"))
     g_rec["frames_per_s_tracked_sync_f_same_frames"] = fps_f
     g_rec["judge_parsac_span_ms_host_twin_f"] = twin
+    g_rec["host_cpu_count"] = os.cpu_count()
     print(f"[G] {g_rec['frames_per_s_tracked']:.3f} frames/s over the tracked frames "
           f"(threaded) against F's synchronous {fps_f:.3f} over frames "
-          f"{first + 1}-{G_FRAMES - 1} (the two ran at once, each in its own process)")
+          f"{first + 1}-{G_FRAMES - 1} (ratio {g_rec['frames_per_s_tracked'] / fps_f:.3f}; "
+          f"F, G and H ran at once, each in its own process, on a host of "
+          f"{os.cpu_count()} CPUs)")
     print(f"[G] span swt.judge.parsac: device PARSAC {g_rec['judge_parsac_span_ms']:.2f} ms "
           f"against F's host twin {twin:.2f} ms")
 
 
-class PhaseGChild:
-    """Phase G in a second process (`python3 chip_smoke.py --phase-g-child
-    OUT`), started before phase F so that the two main-path runs, each
-    bound by its host's Python dispatch, take their time at once: one after
-    the other they would pass the script's time limit on the slower
-    machines. Its stdout goes to a file; `finish()` waits for it (the
-    process is killed if it outlives G_CHILD_TIMEOUT_S or the parent
-    fails), relays its output and returns its record and launches."""
+class PhaseChild:
+    """Phase G or H in a process of its own (`python3 chip_smoke.py
+    --phase-child G|H OUT`), started before phase F (H before phase A) so
+    that the main-path runs, each bound by its host's Python dispatch, take
+    their time at once: one after the other they would pass the script's
+    time limit. Its stdout goes to a file; `finish()` waits for it (the
+    process is killed if it outlives its time limit or the parent fails),
+    relays its output and returns its record."""
 
-    def __init__(self, tmp):
-        self.out = os.path.join(tmp, "phase_g.json")
-        self.log = open(os.path.join(tmp, "phase_g.log"), "w+")
+    def __init__(self, tmp, phase, timeout_s):
+        self.phase = phase
+        self.timeout_s = timeout_s
+        self.out = os.path.join(tmp, f"phase_{phase}.json")
+        self.log = open(os.path.join(tmp, f"phase_{phase}.log"), "w+")
         self.t0 = time.perf_counter()
         self.proc = subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--phase-g-child", self.out],
+            [sys.executable, os.path.abspath(__file__), "--phase-child", phase, self.out],
             stdout=self.log, stderr=subprocess.STDOUT)
 
     def finish(self):
         try:
-            rc = self.proc.wait(timeout=max(G_CHILD_TIMEOUT_S - (time.perf_counter() - self.t0),
+            rc = self.proc.wait(timeout=max(self.timeout_s - (time.perf_counter() - self.t0),
                                             1))
         finally:
             self.stop()
         self.log.seek(0)
         sys.stdout.write(self.log.read())
         self.log.close()
-        print(f"[G] phase took {time.perf_counter() - self.t0:.1f} s in its own process "
-              f"(concurrent with F)")
-        check(rc == 0, f"phase G: its process exited with {rc}")
+        print(f"[{self.phase}] phase took {time.perf_counter() - self.t0:.1f} s in its own "
+              f"process (concurrent with the others)")
+        check(rc == 0, f"phase {self.phase}: its process exited with {rc}")
         with open(self.out) as fh:
-            out = json.load(fh)
-        return out["record"], out["launches"]
+            return json.load(fh)
 
     def stop(self):
         if self.proc.poll() is None:
@@ -1044,20 +1070,25 @@ class PhaseGChild:
 
 
 G_CHILD_TIMEOUT_S = 900
+H_CHILD_TIMEOUT_S = 1080
 
 
-def phase_g_child(out_path):
-    """The body of the phase-G process: the same setup as main's, phase G,
-    its record and launches written to `out_path`."""
+def phase_child(phase, out_path):
+    """The body of a phase's own process: the same setup as main's, then
+    phase G or H, its record written to `out_path`."""
     if not torch.cuda.is_available():
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    klt.load_kernel()  # built by the parent: loaded by its source hash
-    seq, rend, frames = render(G_FRAMES)
-    rec, launches = phase_g(make_config(rend.K), seq, frames, DEV)
+    if phase == "G":
+        klt.load_kernel()  # built by the parent: loaded by its source hash
+        seq, rend, frames = render(G_FRAMES)
+        rec, launches = phase_g(make_config(rend.K), seq, frames, DEV)
+        out = {"record": rec, "launches": launches}
+    else:
+        out = {"record": phase_h(DEV)}
     with open(out_path, "w") as fh:
-        json.dump({"record": rec, "launches": launches}, fh)
+        json.dump(out, fh)
     return 0
 
 
@@ -1102,9 +1133,365 @@ def parsac_card_vs_cpu():
     return out
 
 
+# phase H: bench.py's phase 4 (bench.py:483-548), the lockstep batch
+# runtime over H_N sequences at its full width: make_config(light=False)
+# (bench.py:232-261, here make_config with each sequence's camera), F's
+# Caps, synthetic.generate(duration=10.0, n_landmarks=1200,
+# max_keypoints=150, seed=648 + 7*i) and the SyntheticBackend. H_TICKS is
+# cut from bench.py's 200 (the whole 10 s): the JAX package's lockstep run on
+# the CPU with the same config, Caps and seeds (`JAX_PLATFORMS=cpu python
+# scripts/jax_ate_reference.py --lockstep 200`) ran its third batched
+# keyframe flush at tick 78, so steady_window_start is 83 and 94 = 78 + 16
+# ticks give a steady window of 10 ticks; its ATEs over the 94 ticks, one per
+# sequence, are H_ATE_JAX_CPU_M
+H_N = 4
+H_TICKS = 94
+H_ATE_JAX_CPU_M = (0.0004713562526300411, 0.0004803668716731617,
+                   0.00047802011384077346, 0.0004725987292656507)
+H_ATE_BOUND_M = tuple(max(2 * a, a + 0.01) for a in H_ATE_JAX_CPU_M)
+# the replay of the first batched keyframe flush: F's bounds (see
+# keyframe_card_vs_cpu), its accepted steps within 2 (in f64: batch_replay)
+H_STEP_DIFFS = 2
+
+
+def phase_h(dev):
+    """`batch.run_sequences_lockstep` over H_N sequences for H_TICKS ticks on
+    the card (see above). Returns the `batch` record."""
+    from rd_vio_tpu_torch import native
+    from rd_vio_tpu_torch.batch import dispatcher, run_sequences_lockstep, steady_window_start
+    from rd_vio_tpu_torch.models.feature_tracker import SyntheticBackend
+
+    check(native.available(), "phase H: the native library did not build")
+    seqs, cfgs = [], []
+    for i in range(H_N):
+        seq = synthetic.generate(duration=10.0, n_landmarks=1200, max_keypoints=150,
+                                 seed=648 + 7 * i)
+        seqs.append(seq)
+        cfgs.append(make_config(seq.K_mat))
+    GLOBAL_TIMER.reset()
+    builders.PROGRAM_STATS.clear()
+    builders.KF_FUSED_COUNT.n = 0
+    ba.ROW_ITERATIONS.clear()
+    native.CALLS.clear()
+    dispatcher.CAPTURE_BATCH, dispatcher.CAPTURED_BATCH = True, None
+    # vmap's per-row fallback warns from here on (the dispatcher also turns
+    # it off while its programs run, so there it raises)
+    torch._C._functorch._set_vmap_fallback_warning_enabled(True)
+    vio_box, per_tick, prof_box = [], [], {}
+    calls = lambda k: builders.PROGRAM_STATS.get(k, {}).get("calls", 0)  # noqa: E731
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if dev.type == "cuda":
+            torch.cuda.set_sync_debug_mode("warn")
+        n_seen = [0]
+
+        def on_tick(k):
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            if k % 10 == 9:
+                print(f"[H] tick {k + 1} of {H_TICKS} after {time.perf_counter() - t0:.1f} s",
+                      flush=True)
+            new = caught[n_seen[0]:]
+            n_seen[0] = len(caught)
+            per_tick.append({
+                "kf": calls("batched_kf"), "marg": calls("batched_marg"),
+                "sub": calls("batched_sub"),
+                "syncs": sum("synchronizing CUDA operation" in str(w.message) for w in new),
+                "fallbacks": sum("performance drop" in str(w.message) for w in new),
+                "states": [odo.state() for odo in vio_box[0].odos]})
+            if "prof" in prof_box:  # the profiled tick ends here
+                p, t_p = prof_box.pop("prof")
+                prof_box["result"] = (k, p, time.perf_counter() - t_p)
+                p.__exit__(None, None, None)
+            elif "tick" not in prof_box and calls("batched_kf") >= 3:
+                # profile the first tick of the steady window (its end is
+                # steady_window_start's stamp, outside the timed intervals)
+                prof_box["tick"] = k + 5
+            if prof_box.get("tick") == k + 1:
+                from torch.profiler import ProfilerActivity, profile
+
+                p = profile(activities=[ProfilerActivity.CUDA])
+                p.__enter__()
+                prof_box["prof"] = (p, time.perf_counter())
+
+        t0 = time.perf_counter()
+        try:
+            n_tick, est, stamps, kf_fl = run_sequences_lockstep(
+                cfgs, [SyntheticBackend(q) for q in seqs], seqs, caps=F_CAPS,
+                device=dev, n_ticks=H_TICKS, on_tick=on_tick, on_start=vio_box.append)
+        finally:
+            if dev.type == "cuda":
+                torch.cuda.set_sync_debug_mode("default")
+            dispatcher.CAPTURE_BATCH = False
+            if "prof" in prof_box:
+                prof_box.pop("prof")[0].__exit__(None, None, None)
+        wall = time.perf_counter() - t0
+    host = GLOBAL_TIMER.stats()
+    programs = {k: dict(v) for k, v in builders.PROGRAM_STATS.items()}
+    native_calls = dict(native.CALLS)
+
+    check(n_tick == H_TICKS, f"phase H: {n_tick} ticks, not {H_TICKS}")
+    ates = []
+    for i, (seq, e) in enumerate(zip(seqs, est)):
+        check(len(e) > 0, f"phase H: sequence {i} never reached tracking")
+        est_p = np.stack([p for _, p in e])
+        check(np.isfinite(est_p).all(), f"phase H: sequence {i} published a non-finite pose")
+        gt = {round(t, 6): p for t, p in zip(seq.t_frame, seq.p_wb)}
+        ates.append(float(ate_rmse(est_p, np.stack([gt[round(t, 6)] for t, _ in e]))))
+    states = np.array([t["states"] for t in per_tick])
+    check(not (states == 2).any(), "phase H: a sequence reported a crash")
+    first = [int(np.flatnonzero(states[:, i] == 1)[0]) for i in range(H_N)]
+    check(all((states[f:, i] == 1).all() for i, f in enumerate(first)),
+          "phase H: a sequence lost tracking")
+    n_kf = kf_fl[-1]
+    # programs per tick, from the counts after each tick
+    prev = {"kf": 0, "marg": 0, "sub": 0}
+    for t in per_tick:
+        d = {k: t[k] - prev[k] for k in prev}
+        prev = {k: t[k] for k in prev}
+        check(d["kf"] <= 1 and d["marg"] == d["kf"] and d["sub"] <= 1,
+              f"phase H: a tick ran {d} batched programs")
+    fallbacks = sum(t["fallbacks"] for t in per_tick)
+
+    h = steady_window_start(kf_fl)
+    st = np.asarray(stamps)
+    steady_fps = (len(st) - 1 - h) * H_N / max(st[-1] - st[h], 1e-9)
+    whole_fps = n_tick * H_N / wall
+    steady_syncs = [t["syncs"] for t in per_tick[h + 1:]]
+    rows_it = list(ba.ROW_ITERATIONS)
+    max_it = [max(r) for r in rows_it]
+    kernels = kernel_ms = None
+    prof_tick = None
+    if "result" in prof_box:
+        prof_tick, p, t_prof = prof_box["result"]
+        kernels, kernel_ms = 0, 0.0
+        for e in p.key_averages():
+            if str(getattr(e, "device_type", "")).endswith("CUDA"):
+                kernels += e.count
+                kernel_ms += 1e-3 * getattr(e, "self_device_time_total",
+                                            getattr(e, "self_cuda_time_total", 0.0))
+    d_tick = {k: per_tick[prof_tick][k] - per_tick[prof_tick - 1][k]
+              for k in ("kf", "sub")} if prof_tick else None
+    rec = {
+        "sequences": H_N, "ticks": n_tick, "bench_ticks": 200, "wall_s": wall,
+        "first_tracked_tick": first, "tracked": [len(e) for e in est],
+        "batched_kf_flushes": n_kf, "steady_window_start": h,
+        "batch_fps_per_chip": steady_fps, "batch_fps_whole_run": whole_fps,
+        "ate_m": ates, "max_ate_m": max(ates), "ate_jax_cpu_m": list(H_ATE_JAX_CPU_M),
+        "ate_bound_m": list(H_ATE_BOUND_M),
+        "programs": {k: {"calls": v["calls"], "solves": v["solves"],
+                         "lm_iterations": v["iterations"]} for k, v in programs.items()},
+        "lm_iterations_per_batched_solve": {
+            "max": max(max_it) if max_it else None,
+            "mean_of_max": float(np.mean(max_it)) if max_it else None,
+            "rows_mean": np.mean(np.array(rows_it), axis=0).tolist() if rows_it else None,
+            "solves": len(rows_it)},
+        "host_syncs_per_tick": {"steady_mean": float(np.mean(steady_syncs)),
+                                "steady_max": int(max(steady_syncs)),
+                                "all_ticks": int(sum(t["syncs"] for t in per_tick))},
+        "vmap_fallbacks": fallbacks,
+        "profiled_tick": prof_tick, "profiled_tick_programs": d_tick,
+        "kernels_per_steady_tick": kernels,
+        "device_busy_share": None if kernel_ms is None else kernel_ms / (1e3 * t_prof),
+        "native_calls": native_calls,
+        "spans_ms": {k: {"n": v["n"], "mean": v["mean_ms"], "p50": v["p50_ms"],
+                         "p90": v["p90_ms"]} for k, v in host.items()},
+    }
+    print(f"[H] lockstep batch runtime: {H_N} sequences x {n_tick} ticks (bench.py runs "
+          f"200), first tracked ticks {first}, tracked {rec['tracked']}, batched keyframe "
+          f"flushes {n_kf}, {wall:.1f} s")
+    print(f"[H] steady aggregate {steady_fps:.3f} frames/s over ticks {h + 1}-{n_tick - 1} "
+          f"(bench.py's batch_fps_per_chip); whole run {whole_fps:.3f} frames/s")
+    print(f"[H] batched programs: " + ", ".join(
+        f"{k} {v['calls']} calls, {v['solves']} solves, {v['iterations']} LM iterations"
+        for k, v in sorted(programs.items()) if k.startswith("batched")))
+    print(f"[H] LM iterations per batched solve: max {rec['lm_iterations_per_batched_solve']['max']}, "
+          f"mean of the maxima {rec['lm_iterations_per_batched_solve']['mean_of_max']:.1f}, per "
+          f"row mean {rec['lm_iterations_per_batched_solve']['rows_mean']}")
+    print(f"[H] host syncs per steady tick: mean {rec['host_syncs_per_tick']['steady_mean']:.1f}, "
+          f"max {rec['host_syncs_per_tick']['steady_max']}; vmap per-row fallbacks {fallbacks}")
+    if kernels is not None:
+        print(f"[H] tick {prof_tick} under torch.profiler ({d_tick}): {kernels} kernels, "
+              f"summed kernel time {kernel_ms:.1f} ms in {1e3 * t_prof:.0f} ms (busy share "
+              f"{rec['device_busy_share']:.4f})")
+    # the host assembly's spans on the NumPy loops, before the native
+    # library (phase F on this card, PERF.md): 83-171 and 6.6-11.6 ms
+    numpy_path = {"bld.kf.assemble": "83-171", "bld.sub.assemble": "6.6-11.6"}
+    for k in ("batch.kf", "batch.sub", "bld.kf.assemble", "bld.sub.assemble"):
+        v = host.get(k)
+        if v:
+            print(f"[H] span {k}: mean {v['mean_ms']:.1f} ms p50 {v['p50_ms']:.1f} "
+                  f"p90 {v['p90_ms']:.1f} (n={v['n']})" + (
+                      f"; {numpy_path[k]} ms on the NumPy path" if k in numpy_path else ""))
+    print(f"[H] native calls: {native_calls}")
+    for i, (a, b) in enumerate(zip(ates, H_ATE_BOUND_M)):
+        print(f"[H] sequence {i}: ATE {a:.5f} m; JAX lockstep on the CPU "
+              f"{H_ATE_JAX_CPU_M[i]:.5f} m; bound {b:.5f} m")
+    check(n_kf >= 3, f"phase H: only {n_kf} batched keyframe flushes")
+    check(calls("batched_kf") == n_kf, "phase H: batched keyframe programs != flushes")
+    check(fallbacks == 0, f"phase H: vmap fell back to a loop over rows {fallbacks} times")
+    check(native_calls.get("preintegrate_batch", 0) > 0 and
+          native_calls.get("predict_mean", 0) > 0, "phase H: the native library was not used")
+    for i, (a, b) in enumerate(zip(ates, H_ATE_BOUND_M)):
+        check(a <= b, f"phase H: sequence {i} ATE {a:.5f} m > {b:.5f} m")
+    rec["replay"] = batch_replay(dev)
+    return rec
+
+
+def batch_replay(dev):
+    """The first batched keyframe flush (dispatcher.CAPTURED_BATCH kept its
+    stacked inputs and outputs), run again: its active rows one by one
+    through the single-sequence `builders.run_keyframe_fused` on the card,
+    and the whole batch on the CPU. In f32, as the run made it, and cast to
+    f64. The f32 window solves of perfect-match synthetic data start at the
+    f32 noise floor, where a step's acceptance is decided by rounding, not
+    by the problem (accepted steps 3 / 7 single against batched and 6 / 0
+    card against CPU in the first card run, positions within 4.2e-7 m), so
+    the accepted steps are held in f64, where the problem decides them:
+    within H_STEP_DIFFS; both dtypes: positions within 1e-4 m, the
+    marginalization prior's S^T S within F_PRIOR_OWN relative (each at its
+    own solution) and F_PRIOR_SAME (at the batched solution). The f64 batch
+    also runs with eager LM iterations against the graphed ones."""
+    from rd_vio_tpu_torch.batch import dispatcher
+
+    cap = dispatcher.CAPTURED_BATCH
+    check(cap is not None, "phase H: no batched keyframe flush captured")
+    a, mask, priors, it, ct = (cap[k] for k in ("arrays", "mask", "priors",
+                                                "max_iterations", "calib"))
+    out = {"f32": replay_rows(a, mask, priors, ct, it, cap["out"], dev)}
+    a64 = host64(a)
+    up = builders._up(a64, dev)
+    kf_mask = torch.from_numpy(mask).to(dev)
+
+    def batched(graphs):
+        ba.ROW_GRAPHS = graphs
+        try:
+            res, res_loc, v, ok, tri, _ = dispatcher.batched_kf(up, priors, ct, it)
+            return res, res_loc, v, ok, tri, dispatcher.batched_marg(
+                res.states, res.inv_depth, v, ok, tri, up, priors, kf_mask, ct)
+        finally:
+            ba.ROW_GRAPHS = True
+
+    out64 = batched(True)  # captures the f64 graphs
+    out["f64"] = replay_rows(a64, mask, priors, ct, it, out64, dev)
+
+    def timed(graphs):
+        t0 = time.perf_counter()
+        o = batched(graphs)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return o, time.perf_counter() - t0
+
+    eager, t_eager = timed(False)
+    _, t_graph = timed(True)
+    out["f64_graph_vs_eager"] = {
+        "accepted_steps": [out64[0].iterations.tolist(), eager[0].iterations.tolist()],
+        "max_position_diff_m": float((out64[0].states.p - eager[0].states.p).abs().max()),
+        "s": [t_graph, t_eager]}
+    print(f"[H] f64 batch, graphed LM iterations against eager: accepted steps "
+          f"{out['f64_graph_vs_eager']['accepted_steps']}, positions within "
+          f"{out['f64_graph_vs_eager']['max_position_diff_m']:.3e} m; the batch's two "
+          f"programs {t_graph:.2f} s graphed against {t_eager:.2f} s eager")
+    for dt in ("f32", "f64"):
+        for r in out[dt]["rows"] + out[dt]["cpu"]:
+            d = r["accepted_steps"]
+            check(dt == "f32" or abs(d[0] - d[1]) <= H_STEP_DIFFS,
+                  f"phase H: {dt} replay row {r['row']} accepted steps {d}")
+            check(r["max_position_diff_m"] <= 1e-4, f"phase H: {dt} replay row {r['row']} "
+                  f"positions differ by {r['max_position_diff_m']:.3e}")
+            check(r["prior_info_rel_diff"] <= F_PRIOR_OWN, f"phase H: {dt} replay row "
+                  f"{r['row']} priors differ by {r['prior_info_rel_diff']:.3e}")
+        for r in out[dt]["cpu"]:
+            check(r["prior_info_rel_diff_same_solution"] <= F_PRIOR_SAME,
+                  f"phase H: {dt} row {r['row']}: card and CPU marginalizations of one "
+                  f"solution differ")
+    ge = out["f64_graph_vs_eager"]
+    check(all(abs(x - y) <= H_STEP_DIFFS for x, y in zip(*ge["accepted_steps"])) and
+          ge["max_position_diff_m"] <= 1e-4, "phase H: graphed and eager batches differ")
+    return out
+
+
+def host64(tree):
+    """A host tree (dicts, NamedTuples, arrays) with its float arrays f64."""
+    if isinstance(tree, dict):
+        return {k: host64(v) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(host64(x) for x in tree))
+    a = np.asarray(tree)
+    return a.astype(np.float64) if np.issubdtype(a.dtype, np.floating) else a
+
+
+def replay_rows(a, mask, priors, ct, it, out_b, dev):
+    """One replay of batch_replay: `out_b` (the batched outputs on the card
+    for stacked host arrays `a`) against each active row's single-sequence
+    step on the card and against the batch on the CPU."""
+    from rd_vio_tpu_torch.batch import dispatcher
+    from rd_vio_tpu_torch.estimation import factors as Fa
+
+    res_b, _, v_b, ok_b, tri_b, priors_b = out_b
+    dt = str(res_b.states.p.dtype).replace("torch.", "")
+    info = lambda S: S.to("cpu", torch.float64).mT @ S.to("cpu", torch.float64)  # noqa: E731
+    rel = lambda x, y: float((x - y).abs().max() / y.abs().max())  # noqa: E731
+
+    def row(tree, i):  # row i of a stacked host tree
+        if isinstance(tree, dict):
+            return {k: row(v, i) for k, v in tree.items()}
+        if hasattr(tree, "_fields"):
+            return type(tree)(*(row(x, i) for x in tree))
+        return tree[i]
+
+    out = {"rows": []}
+    for i in np.flatnonzero(mask):
+        prior_i = Fa.PriorFactor(*(t[i] for t in priors))
+        res, _, v, _, _, prior_new = builders.run_keyframe_fused(row(a, i), prior_i, ct, it)
+        out["rows"].append({
+            "row": int(i), "accepted_steps": [int(res_b.iterations[i]), int(res.iterations)],
+            "max_position_diff_m": float((res_b.states.p[i].double()
+                                          - res.states.p.double()).abs().max()),
+            "prior_info_rel_diff": rel(info(priors_b.sqrt_inv_cov[i]),
+                                       info(prior_new.sqrt_inv_cov)),
+            "validation_differs": int((v_b[i] != v).sum())})
+    t0 = time.perf_counter()
+    ct_c, priors_c = to_cpu((ct, priors))
+    a_c = builders._up(a, "cpu")
+    m_c = torch.from_numpy(mask)
+    res_c, _, v_c, ok_c, tri_c, _ = dispatcher.batched_kf(a_c, priors_c, ct_c, it)
+    priors_cc = dispatcher.batched_marg(res_c.states, res_c.inv_depth, v_c, ok_c, tri_c, a_c,
+                                        priors_c, m_c, ct_c)
+    same = dispatcher.batched_marg(*to_cpu((res_b.states, res_b.inv_depth, v_b, ok_b, tri_b)),
+                                   a_c, priors_c, m_c, ct_c)
+    out["cpu_replay_s"] = time.perf_counter() - t0
+    out["cpu"] = [{
+        "row": int(i),
+        "accepted_steps": [int(res_b.iterations[i]), int(res_c.iterations[i])],
+        "max_position_diff_m": float((res_b.states.p[i].cpu().double()
+                                      - res_c.states.p[i].double()).abs().max()),
+        "prior_info_rel_diff": rel(info(priors_b.sqrt_inv_cov[i]),
+                                   info(priors_cc.sqrt_inv_cov[i])),
+        "prior_info_rel_diff_same_solution": rel(info(priors_b.sqrt_inv_cov[i]),
+                                                 info(same.sqrt_inv_cov[i]))}
+        for i in np.flatnonzero(mask)]
+    for r in out["rows"]:
+        print(f"[H] first batched keyframe flush ({dt}), row {r['row']} against the "
+              f"single-sequence step on the card: accepted steps {r['accepted_steps'][0]} / "
+              f"{r['accepted_steps'][1]}, positions within {r['max_position_diff_m']:.3e} m, "
+              f"prior S^T S within {r['prior_info_rel_diff']:.3e}, validation differs on "
+              f"{r['validation_differs']} slots")
+    for r in out["cpu"]:
+        print(f"[H] ({dt}) row {r['row']}, card batch against CPU batch: accepted steps "
+              f"{r['accepted_steps'][0]} / {r['accepted_steps'][1]}, positions within "
+              f"{r['max_position_diff_m']:.3e} m, prior S^T S within "
+              f"{r['prior_info_rel_diff']:.3e} (own solutions), "
+              f"{r['prior_info_rel_diff_same_solution']:.3e} (the CPU at the card's solution)")
+    print(f"[H] ({dt}) the CPU's replay of the batch took {out['cpu_replay_s']:.1f} s")
+    return out
+
+
 def main(argv):
-    if "--phase-g-child" in argv:  # phase G's own process (PhaseGChild)
-        return phase_g_child(argv[argv.index("--phase-g-child") + 1])
+    if "--phase-child" in argv:  # phase G's or H's own process (PhaseChild)
+        i = argv.index("--phase-child")
+        return phase_child(argv[i + 1], argv[i + 2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
@@ -1119,6 +1506,30 @@ def main(argv):
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python "
           f"{sys.version.split()[0]}; device {torch.cuda.get_device_name(0)}")
 
+    from rd_vio_tpu_torch import native
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # phase H first, in its own process: it runs at once with A-G
+        child_h = PhaseChild(tmp, "H", H_CHILD_TIMEOUT_S)
+        try:
+            records, fused, level = run_a_to_g(dev, tmp, native)
+            records["batch"] = child_h.finish()["record"]
+        finally:
+            child_h.stop()
+    compare_h_with_f(records["batch"], records["odometry"])
+
+    for k, v in records.items():
+        print(json.dumps({k: v}))
+    print(json.dumps({"kernels": [fused, level]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def run_a_to_g(dev, tmp, native):
+    """Phases A-G (G in its own process, at once with F); returns the
+    records, and the fused and level kernels' entries of the `kernels` line."""
     t0 = time.perf_counter()
     klt.load_kernel()
     print(f"LK kernels: built in {klt.build_seconds:.2f} s, loaded in "
@@ -1126,6 +1537,7 @@ def main(argv):
     for line in klt.build_kernel().with_suffix(".ptxas.txt").read_text().splitlines():
         if "registers" in line or "Compiling" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
+    check(native.available(), "the native library did not build")
 
     t_r = time.perf_counter()
     seq, rend, frames = render(F_FRAMES)
@@ -1149,27 +1561,40 @@ def main(argv):
     lap("D")
     records = {"estimator": phase_e(seq, dev)}
     lap("E")
-    with tempfile.TemporaryDirectory() as tmp:
-        child = PhaseGChild(tmp)  # phase G, at once with F
-        try:
-            records["odometry"], launches_f, wall_f = phase_f(cfg, seq, frames, dev)
-            lap("F")
-            records["odometry_threaded"], launches_g = child.finish()
-        finally:
-            child.stop()
+    child = PhaseChild(tmp, "G", G_CHILD_TIMEOUT_S)  # phase G, at once with F
+    try:
+        native.CALLS.clear()
+        records["odometry"], launches_f, wall_f = phase_f(cfg, seq, frames, dev)
+        records["odometry"]["native_calls"] = dict(native.CALLS)
+        lap("F")
+        out_g = child.finish()
+    finally:
+        child.stop()
+    records["odometry_threaded"], launches_g = out_g["record"], out_g["launches"]
     compare_g_with_f(records["odometry_threaded"], records["odometry"], wall_f)
+    for ph, rec in (("F", records["odometry"]), ("G", records["odometry_threaded"])):
+        print(f"[{ph}] native calls: {rec['native_calls']}")
+        check(rec["native_calls"].get("preintegrate_batch", 0) > 0
+              and rec["native_calls"].get("predict_mean", 0) > 0,
+              f"phase {ph}: the native library was not used")
     # the main path's launches: phases F and G, each counted from 0 just
     # before it ran
     fused["launches_by_phase"] = {"F": launches_f, "G": launches_g}
     fused["launches"] = launches_f + launches_g
+    return records, fused, level
 
-    for k, v in records.items():
-        print(json.dumps({k: v}))
-    print(json.dumps({"kernels": [fused, level]}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+
+def compare_h_with_f(h_rec, f_rec):
+    """H's aggregate steady frames/s beside F's single-sequence frames/s,
+    and kernels per steady tick beside F's kernels per frame (the two ran
+    in the same call, each in its own process); added to H's record."""
+    h_rec["frames_per_s_tracked_f"] = f_rec["frames_per_s_tracked"]
+    h_rec["kernels_per_frame_f"] = f_rec["kernels_per_frame"]
+    kt = h_rec["kernels_per_steady_tick"]
+    print(f"[H] steady aggregate {h_rec['batch_fps_per_chip']:.3f} frames/s over {H_N} "
+          f"sequences against F's single-sequence {f_rec['frames_per_s_tracked']:.3f} frames/s "
+          f"(F: images and the tracker; H: the synthetic backend); kernels per steady tick "
+          f"{kt} against F's {f_rec['kernels_per_frame']} per frame")
 
 
 if __name__ == "__main__":

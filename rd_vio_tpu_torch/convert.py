@@ -196,3 +196,26 @@ def ba_spec_from(spec, m, device):
         reproj_arrays=None if ra is None else builders.ReprojArrays(**ra),
         opt_invd=spec["opt_invd"],
     )
+
+
+def batched_chain_from(chain, device) -> FrameStates:
+    """The lockstep dispatcher's batched subwindow chain, (N, Wf, ...)
+    FrameStates, from the JAX dispatcher's `_chain`."""
+    return frame_states_from(chain, device)
+
+
+def batched_priors_from(priors, device) -> F.PriorFactor:
+    """The lockstep dispatcher's batched prior tree, (N, ...) PriorFactor
+    leaves, from the JAX dispatcher's `_priors` (or None)."""
+    return prior_from(priors, device)
+
+
+def stacked_from(tree):
+    """A stacked (N-leading) host tree of the JAX dispatcher's programs, as
+    the port's: ProblemArrays become the port's, dicts stay dicts of NumPy
+    arrays (the keyframe step's arrays, the validation arrays)."""
+    if isinstance(tree, dict):
+        return {k: stacked_from(v) for k, v in tree.items()}
+    if hasattr(tree, "_fields") and type(tree).__name__ == "ProblemArrays":
+        return problem_arrays_from(tree)
+    return np.array(tree)

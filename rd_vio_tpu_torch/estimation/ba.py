@@ -15,17 +15,27 @@ Port of the JAX package's estimation/ba.py:
   factors, non-optimized landmarks) are handled by masking Jacobian columns.
 
 Everything is fixed-shape; invalid factor slots carry zero weight. No
-function here reads a value back to the host except `solve_ba`, once per
-LM iteration, to stop.
+function here reads a value back to the host except `solve_ba` and
+`solve_ba_rows`, once per LM iteration, to stop.
+
+`solve_ba_rows` is the batched solve of the lockstep runtime: N independent
+problems with a leading row axis, each LM iteration's linearization, solve,
+retraction and cost vmapped over the rows, as the JAX package vmaps its
+`lax.while_loop`. On CUDA that iteration is captured once per set of
+shapes in a CUDA graph and replayed (`ROW_GRAPHS`): eagerly, each of its
+~4,900 small kernels costs its Python dispatch (PERF.md section 5).
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import threading
 from typing import NamedTuple
 
 import torch
 from torch.func import jacfwd, vmap
+from torch.utils._pytree import tree_flatten, tree_map
 
 from rd_vio_tpu_torch.estimation import factors as F
 from rd_vio_tpu_torch.estimation.state import ES_SIZE, FrameStates, retract
@@ -282,11 +292,13 @@ def _col_mask(pb: BAProblem, W, dtype):
 
 
 def segment_sum(data, segment_ids, num_segments):
-    """jax.ops.segment_sum over dim 0. On CUDA `index_add_` adds with
+    """jax.ops.segment_sum over dim 0. On CUDA `index_add` adds with
     atomics, so the order of summation (and the last bits) varies from run
-    to run; the CPU adds in index order."""
+    to run; the CPU adds in index order. Out of place, so that it runs
+    under `torch.func.vmap` with batched data (an in-place add into an
+    unbatched tensor cannot take a batched one)."""
     out = data.new_zeros((num_segments,) + data.shape[1:])
-    return out.index_add_(0, segment_ids, data)
+    return torch.index_add(out, 0, segment_ids, data)
 
 
 def build_normal_system(states, inv_depth, pb: BAProblem):
@@ -389,8 +401,21 @@ def solve_normal_system(H, g, Hll, Hcl, bl, cmask, lam, opt_lm):
 # LM loop
 # ---------------------------------------------------------------------------
 
-# solve_ba calls and the LM iterations they ran, for the callers' statistics
-STATS = {"solves": 0, "iterations": 0}
+class _Stats(threading.local):
+    """solve_ba / solve_ba_rows calls and the LM iterations they ran, per
+    thread (each Odometry of a threaded or batched run solves on its own
+    thread), for the callers' statistics. A batched solve counts once, with
+    the iterations its loop ran: the most of any row."""
+
+    def __init__(self):
+        self.solves = 0
+        self.iterations = 0
+
+
+STATS = _Stats()
+# the LM iterations of each row of every batched solve (a list per solve),
+# for a caller that reports them (the last 4096 solves)
+ROW_ITERATIONS: collections.deque = collections.deque(maxlen=4096)
 
 
 def solve_ba(states: FrameStates, inv_depth, pb: BAProblem, max_iterations: int = 10,
@@ -420,9 +445,9 @@ def solve_ba(states: FrameStates, inv_depth, pb: BAProblem, max_iterations: int 
     s, invd, cost = states, inv_depth, cost0
     lam = torch.full((), 1e-4, dtype=dtype, device=dev)  # made on the device: no copy
     n_acc = torch.zeros((), dtype=torch.int32, device=dev)
-    STATS["solves"] += 1
+    STATS.solves += 1
     for _ in range(max_iterations):
-        STATS["iterations"] += 1
+        STATS.iterations += 1
         with span("ba.build_normal_system"):
             H, g, Hll, Hcl, bl, cmask = build_normal_system(s, invd, pb)
         with span("ba.solve_normal_system"):
@@ -453,3 +478,154 @@ def solve_ba(states: FrameStates, inv_depth, pb: BAProblem, max_iterations: int 
             break
     return BAResult(states=s, inv_depth=invd, cost=cost, initial_cost=cost0,
                     iterations=n_acc)
+
+
+def _rows_where(mask, new, old):
+    """Per row of the leading axis: `new` where `mask`, else `old`."""
+    return torch.where(mask.reshape((-1,) + (1,) * (old.ndim - 1)), new, old)
+
+
+class _RowCarry(NamedTuple):
+    """The LM loop's carry of a batched solve, one entry per row."""
+
+    s: FrameStates
+    invd: torch.Tensor
+    cost: torch.Tensor
+    lam: torch.Tensor
+    n_acc: torch.Tensor
+    done: torch.Tensor
+
+
+def _row_step(c: _RowCarry, pb: BAProblem) -> _RowCarry:
+    """One LM iteration of every row (the body of solve_ba's loop under
+    vmap); a row that is done keeps its carry."""
+    N, W = c.s.q.shape[:2]
+    fi = torch.finfo(c.s.q.dtype)
+    H, g, Hll, Hcl, bl, cmask = vmap(build_normal_system)(c.s, c.invd, pb)
+    dc, dl = vmap(solve_normal_system)(H, g, Hll, Hcl, bl, cmask, c.lam, pb.opt_lm)
+    s_new = vmap(retract)(c.s, dc.reshape(N, W, ES_SIZE))
+    invd_new = c.invd + dl * pb.opt_lm.to(dc.dtype)
+    new_cost = vmap(compute_cost)(s_new, invd_new, pb)
+    accept = (new_cost < c.cost) & torch.isfinite(new_cost)
+    rel_decrease = (c.cost - new_cost) / torch.clamp(c.cost, min=fi.tiny)
+    step_small = torch.amax(torch.abs(dc), dim=1) < 1e-8
+    at_noise_floor = torch.abs(rel_decrease) < 10 * fi.eps
+    stop = (accept & (rel_decrease < 1e-6)) | step_small | (~accept & at_noise_floor)
+    live = ~c.done
+    take = accept & live
+    return _RowCarry(
+        s=FrameStates(*(_rows_where(take, b, a) for a, b in zip(c.s, s_new))),
+        invd=_rows_where(take, invd_new, c.invd),
+        cost=torch.where(take, new_cost, c.cost),
+        lam=torch.where(live, torch.where(accept, torch.clamp(c.lam / 3.0, min=1e-9),
+                                          torch.clamp(c.lam * 4.0, max=1e8)), c.lam),
+        n_acc=c.n_acc + take.to(torch.int32),
+        done=c.done | stop)
+
+
+def _flat(tree) -> list:
+    return tree_flatten(tree)[0]
+
+
+class _GraphedRowStep:
+    """`_row_step` captured once in a CUDA graph for one set of shapes and
+    dtypes: a replay launches the iteration's few thousand kernels from one
+    host call, where the eager body dispatches each from Python (PERF.md).
+    The graph reads and writes its own static tensors: `load` copies a
+    solve's problem and carry in, each `replay` advances the carry in
+    place."""
+
+    def __init__(self, c: _RowCarry, pb: BAProblem):
+        self.c = tree_map(torch.clone, c)
+        self.pb = tree_map(torch.clone, pb)
+        # warm-up on a side stream (library handles, workspaces), then the
+        # capture, as torch.cuda.graphs asks
+        # capture, as torch.cuda.graphs asks; the batched Cholesky through
+        # cuSOLVER, whose batched factorization never waits for the host
+        lib = torch.backends.cuda.preferred_linalg_library()
+        torch.backends.cuda.preferred_linalg_library("cusolver")
+        try:
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for _ in range(2):
+                    _row_step(self.c, self.pb)
+            torch.cuda.current_stream().wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph):
+                out = _row_step(self.c, self.pb)
+                for dst, src in zip(_flat(self.c), _flat(out)):
+                    dst.copy_(src)
+        finally:
+            torch.backends.cuda.preferred_linalg_library(lib)
+
+    def load(self, c: _RowCarry, pb: BAProblem):
+        for dst, src in zip(_flat(self.c) + _flat(self.pb), _flat(c) + _flat(pb)):
+            dst.copy_(src)
+
+    def replay(self):
+        self.graph.replay()
+
+
+# captured batched LM iterations by their inputs' shapes and dtypes; the
+# batched solve replays them on CUDA while ROW_GRAPHS is set
+ROW_GRAPHS = True
+_row_graphs: dict = {}
+
+
+def _graph_key(c: _RowCarry, pb: BAProblem) -> tuple:
+    return tuple((tuple(t.shape), t.dtype, t.device) for t in _flat(c) + _flat(pb))
+
+
+def solve_ba_rows(states: FrameStates, inv_depth, pb: BAProblem,
+                  max_iterations: int = 10) -> BAResult:
+    """N independent `solve_ba`s with a leading row axis on every leaf of
+    `states`, `inv_depth` and `pb` (and of the result).
+
+    The JAX package vmaps its `lax.while_loop`: the loop runs while any row
+    goes on, and a row that is done keeps its carry. Here each iteration's
+    body (`build_normal_system`, `solve_normal_system`, `retract`,
+    `compute_cost`) is vmapped over the rows, a row freezes once its stop
+    test has fired, and the loop reads the rows' stop flags once per
+    iteration (one host sync) and ends when every row is done. Each row's
+    result (accepted steps counted per row) is its single-row solve's;
+    ROW_ITERATIONS gets the iterations each row ran.
+
+    On CUDA (while ROW_GRAPHS is set) the iteration runs as a CUDA graph,
+    captured at the first solve of each set of shapes: the same kernels on
+    the same inputs, launched from one host call."""
+    N = states.q.shape[0]
+    dtype = states.q.dtype
+    dev = states.q.device
+    cost0 = vmap(compute_cost)(states, inv_depth, pb)
+    c = _RowCarry(s=states, invd=inv_depth, cost=cost0,
+                  lam=torch.full((N,), 1e-4, dtype=dtype, device=dev),
+                  n_acc=torch.zeros((N,), dtype=torch.int32, device=dev),
+                  done=torch.zeros((N,), dtype=torch.bool, device=dev))
+    graph = None
+    if ROW_GRAPHS and dev.type == "cuda":
+        key = _graph_key(c, pb)
+        graph = _row_graphs.get(key)
+        if graph is None:
+            graph = _row_graphs[key] = _GraphedRowStep(c, pb)
+        graph.load(c, pb)
+    row_its, live_prev = [0] * N, [True] * N
+    STATS.solves += 1
+    for _ in range(max_iterations):
+        STATS.iterations += 1
+        if graph is not None:
+            graph.replay()
+            c = graph.c
+        else:
+            c = _row_step(c, pb)
+        # the loop's one host sync per iteration: the rows' stop flags
+        done_h = c.done.cpu().tolist()
+        row_its = [n + 1 if live else n for n, live in zip(row_its, live_prev)]
+        live_prev = [not d for d in done_h]
+        if all(done_h):
+            break
+    ROW_ITERATIONS.append(row_its)
+    if graph is not None:  # the graph's tensors are overwritten by its next solve
+        c = tree_map(torch.clone, c)
+    return BAResult(states=c.s, inv_depth=c.invd, cost=c.cost, initial_cost=cost0,
+                    iterations=c.n_acc)

@@ -51,22 +51,22 @@ PROGRAM_STATS: Dict[str, collections.Counter] = collections.defaultdict(collecti
 
 
 # guards PROGRAM_STATS and KF_FUSED_COUNT: a threaded Odometry runs the
-# programs in its estimator worker while the caller reads the counts. The
-# solves of one Odometry all run on that one thread, so the differences of
-# ba.STATS below belong to `fn`.
+# programs in its estimator worker while the caller reads the counts, and a
+# batched run's sequences run theirs on a pool of threads. ba.STATS counts
+# per thread, so the differences below belong to `fn`.
 _stats_lock = threading.Lock()
 
 
 def _count(name: str, fn, *args, **kw):
     """fn(*args, **kw), its call and the LM iterations of its solves
     counted under `name` in PROGRAM_STATS."""
-    s0, i0 = ba.STATS["solves"], ba.STATS["iterations"]
+    s0, i0 = ba.STATS.solves, ba.STATS.iterations
     out = fn(*args, **kw)
     with _stats_lock:
         st = PROGRAM_STATS[name]
         st["calls"] += 1
-        st["solves"] += ba.STATS["solves"] - s0
-        st["iterations"] += ba.STATS["iterations"] - i0
+        st["solves"] += ba.STATS.solves - s0
+        st["iterations"] += ba.STATS.iterations - i0
     return out
 
 
@@ -783,11 +783,31 @@ def _override_prev_states(s, prev: FrameStates, prev_map):
                          for a_prev, a_host in zip(prev, s)))
 
 
-def _set_slot(s: FrameStates, j: int, src: FrameStates) -> FrameStates:
-    """s with slot j set to src's slot 0."""
+def _set_slot(s: FrameStates, j, src: FrameStates) -> FrameStates:
+    """s with slot j set to src's slot 0; j is an int or a 0-d tensor (one
+    per row under vmap), and a negative j leaves s as it is."""
     mask = torch.arange(s.q.shape[0], device=s.q.device) == j
     return FrameStates(*(_rows_where(mask, b[0].to(a.dtype)[None], a)
                          for a, b in zip(s, src)))
+
+
+def _slot(i, device) -> torch.Tensor:
+    """A slot index as a 0-d tensor on `device`: an int is filled there (a
+    kernel, no copy from the host), a tensor (a row's, under vmap) passes."""
+    if isinstance(i, torch.Tensor):
+        return i
+    return torch.full((), int(i), dtype=torch.int64, device=device)
+
+
+def _per_row(rows: bool):
+    """(lift, solve) of a program body: for one problem the stage functions
+    themselves and `ba.solve_ba`; for a batch with a leading row axis
+    (rows=True, the lockstep runtime) `vmap` of each stage and
+    `ba.solve_ba_rows`. The LM loop cannot run under vmap (it reads its
+    stop flag on the host), so a program is its stages around its solves."""
+    if rows:
+        return vmap, ba.solve_ba_rows
+    return (lambda fn: fn), ba.solve_ba
 
 
 def _chain_localize_head(pa_loc, prev, loc_ip_prev, calib):
@@ -795,18 +815,22 @@ def _chain_localize_head(pa_loc, prev, loc_ip_prev, calib):
     preintegration-prior anchor (slot loc_ip_prev of `prev`) and predict the
     new frame's initial state from it on the device (mirrors
     ops/preintegration_np.predict_mean = reference preintegrator.cpp:102-112).
+    loc_ip_prev is an int or a 0-d tensor (a row's, under vmap); a negative
+    one leaves the host-assembled problem as it is (selected by torch.where,
+    so one batch holds rows of both kinds).
 
     The prior anchor's bg_i/ba_i stay at the host-assembled values: they are
     also the delta's bias linearization point."""
     s_loc, invd_loc, pb_loc = _finalize_problem(pa_loc, calib, None, False)
-    if loc_ip_prev < 0:
-        return s_loc, invd_loc, pb_loc
     dt_ = s_loc.q.dtype
     ip = pb_loc.imu_prior
-    row0 = torch.arange(ip.q_i.shape[0], device=ip.q_i.device) == 0
+    lip = _slot(loc_ip_prev, ip.q_i.device)
+    use = lip >= 0
+    idx = torch.clamp(lip, min=0)
+    row0 = (torch.arange(ip.q_i.shape[0], device=ip.q_i.device) == 0) & use
 
     def over(a_ip, a_prev):
-        return _rows_where(row0, a_prev[loc_ip_prev].to(dt_)[None], a_ip)
+        return _rows_where(row0, a_prev[idx].to(dt_)[None], a_ip)
 
     ip = ip._replace(q_i=over(ip.q_i, prev.q), p_i=over(ip.p_i, prev.p),
                      v_i=over(ip.v_i, prev.v))
@@ -820,23 +844,39 @@ def _chain_localize_head(pa_loc, prev, loc_ip_prev, calib):
     q_pred = quat_normalize(quat_mul(q_i, ip.delta.q[0]))
     pred = FrameStates(q=q_pred[None], p=p_pred[None], v=v_pred[None],
                        bg=ip.bg_i[:1], ba=ip.ba_i[:1])
-    return _set_slot(s_loc, 0, pred), invd_loc, pb_loc
+    return _set_slot(s_loc, torch.where(use, 0, -1), pred), invd_loc, pb_loc
+
+
+def _subwindow_head(pa_sub, prev, sub_prev, j_slot, loc_states, calib):
+    """Subwindow-problem head: initial states from the device-resident
+    previous solve (`sub_prev`, -1: the host's), slot j_slot from the
+    localize solve."""
+    s_sub, invd_sub, pb_sub = _finalize_problem(pa_sub, calib, None, False)
+    s_sub = _override_prev_states(s_sub, prev, sub_prev)
+    return _set_slot(s_sub, j_slot, loc_states), invd_sub, pb_sub
 
 
 def fused_localize_subwindow_chain(pa_loc, pa_sub, j_slot, prev, loc_ip_prev,
-                                   sub_prev, calib, max_iterations):
+                                   sub_prev, calib, max_iterations, rows=False):
     """Per-frame localize + subwindow solve with device-resident state
     chaining: `prev` is the previous subwindow solve's FrameStates on the
-    device, `loc_ip_prev` (host int) the slot of it that anchors the
-    localize problem's preintegration prior, `sub_prev` (W,) seeds the
-    subwindow's initial states."""
-    s_loc, invd_loc, pb_loc = _chain_localize_head(pa_loc, prev, loc_ip_prev, calib)
-    res_loc = ba.solve_ba(s_loc, invd_loc, pb_loc, max_iterations=max_iterations)
+    device, `loc_ip_prev` the slot of it that anchors the localize problem's
+    preintegration prior (-1: none), `sub_prev` (W,) seeds the subwindow's
+    initial states.
 
-    s_sub, invd_sub, pb_sub = _finalize_problem(pa_sub, calib, None, False)
-    s_sub = _override_prev_states(s_sub, prev, sub_prev)
-    s_sub = _set_slot(s_sub, j_slot, res_loc.states)
-    return ba.solve_ba(s_sub, invd_sub, pb_sub, max_iterations=max_iterations)
+    rows=True runs N such problems at once (the lockstep runtime's batched
+    program, the JAX dispatcher's `_batched_sub_jit`): every argument but
+    `calib` and `max_iterations` has a leading row axis, the problem arrays
+    are tensors, and j_slot / loc_ip_prev are (N,) tensors."""
+    lift, solve = _per_row(rows)
+    s_loc, invd_loc, pb_loc = lift(
+        lambda pl, pv, lip: _chain_localize_head(pl, pv, lip, calib))(
+            pa_loc, prev, loc_ip_prev)
+    res_loc = solve(s_loc, invd_loc, pb_loc, max_iterations=max_iterations)
+    s_sub, invd_sub, pb_sub = lift(
+        lambda ps, pv, sp, j, st: _subwindow_head(ps, pv, sp, j, st, calib))(
+            pa_sub, prev, sub_prev, j_slot, res_loc.states)
+    return solve(s_sub, invd_sub, pb_sub, max_iterations=max_iterations)
 
 
 def fused_localize_subwindow(pa_loc, pa_sub, j_slot, calib, max_iterations):
@@ -1143,31 +1183,22 @@ def _solved_view_poses(res_states, calib, qcw, pcw, us):
     return torch.where(sel, qcw_j, qcw), torch.where(sel, pcw_j, pcw)
 
 
-def fused_keyframe(
-    pa_loc, b, qcw, pcw, m_tri, us, tri_aqc, tri_apc,
-    pa_w, j_w, wlm_tri, prior, va, calib, max_iterations,
-):
-    """The sliding-keyframe step (reference track() keyframe branch
-    :80-99): localization solve -> triangulation of pending tracks ->
-    window VI-BA (new-frame state and fresh inverse depths chained in,
-    factors of failed triangulations gated off) -> landmark validation. The
-    slot-0 marginalization is the separate `marginalize_tail`."""
-    # --- 1. localize the new frame -------------------------------------
-    s_loc, invd_loc, pb_loc = _finalize_problem(pa_loc, calib, None, False)
-    res_loc = ba.solve_ba(s_loc, invd_loc, pb_loc, max_iterations=max_iterations)
-
+def _keyframe_window_head(loc_states, b, qcw, pcw, m_tri, us, tri_aqc, tri_apc,
+                         pa_w, j_w, wlm_tri, prior, calib):
+    """Steps 2-3 of `fused_keyframe` before the window solve: triangulation
+    with the solved frame's views, then the window problem with the new
+    frame's state (slot j_w; negative: none) and fresh depths chained in."""
     # --- 2. triangulate pending tracks (f64), solved-frame views chained --
-    qcw, pcw = _solved_view_poses(res_loc.states, calib, qcw, pcw, us)
+    qcw, pcw = _solved_view_poses(loc_states, calib, qcw, pcw, us)
     pts, tri_ok = triangulate_batch(b, qcw, pcw, m_tri)
     # inverse depth along the anchor bearing (reference track.cpp:90-101)
     y_a = quat_rotate(quat_conj(tri_aqc), pts - tri_apc)
     tri_invd = 1.0 / torch.clamp(torch.linalg.vector_norm(y_a, dim=-1), min=1e-9)
     tri_ok = tri_ok & torch.isfinite(tri_invd)
 
-    # --- 3. window solve with chained state + fresh depths ---------------
+    # --- 3. window problem with chained state + fresh depths -------------
     s_w, invd_w, pb_w = _finalize_problem(pa_w, calib, prior, True)
-    if j_w >= 0:
-        s_w = _set_slot(s_w, j_w, res_loc.states)
+    s_w = _set_slot(s_w, j_w, loc_states)
     has_tri = wlm_tri >= 0
     wt = torch.clamp(wlm_tri, min=0).long()
     invd_w = torch.where(has_tri, tri_invd[wt].to(invd_w.dtype), invd_w)
@@ -1177,13 +1208,40 @@ def fused_keyframe(
         opt_lm=pb_w.opt_lm & lm_gate,
         reproj=rp_w._replace(valid=rp_w.valid & lm_gate[rp_w.lm.long()]),
     )
-    res = ba.solve_ba(s_w, invd_w, pb_w, max_iterations=max_iterations)
+    return s_w, invd_w, pb_w, tri_ok, tri_invd
+
+
+def fused_keyframe(
+    pa_loc, b, qcw, pcw, m_tri, us, tri_aqc, tri_apc,
+    pa_w, j_w, wlm_tri, prior, va, calib, max_iterations, rows=False,
+):
+    """The sliding-keyframe step (reference track() keyframe branch
+    :80-99): localization solve -> triangulation of pending tracks ->
+    window VI-BA (new-frame state and fresh inverse depths chained in,
+    factors of failed triangulations gated off) -> landmark validation. The
+    slot-0 marginalization is the separate `marginalize_tail`.
+
+    j_w is an int or a tensor; negative: the solved frame is not in the
+    window. rows=True runs N steps at once (the lockstep runtime's batched
+    program, the JAX dispatcher's `_batched_kf_jit`): every argument but
+    `calib` and `max_iterations` has a leading row axis and is a tensor."""
+    lift, solve = _per_row(rows)
+    # --- 1. localize the new frame -------------------------------------
+    s_loc, invd_loc, pb_loc = lift(
+        lambda pl: _finalize_problem(pl, calib, None, False))(pa_loc)
+    res_loc = solve(s_loc, invd_loc, pb_loc, max_iterations=max_iterations)
+
+    # --- 2-3. triangulation, window solve --------------------------------
+    s_w, invd_w, pb_w, tri_ok, tri_invd = lift(
+        lambda *a: _keyframe_window_head(*a, calib))(
+            res_loc.states, b, qcw, pcw, m_tri, us, tri_aqc, tri_apc, pa_w, j_w,
+            wlm_tri, prior)
+    res = solve(s_w, invd_w, pb_w, max_iterations=max_iterations)
 
     # --- 4. validation (tri-aware) ---------------------------------------
-    valid_out = _validate_tracks_device(
-        va, _states64(res.states), _f64(res.inv_depth), calib.ext,
-        tri_invd=tri_invd, tri_ok=tri_ok,
-    )
+    valid_out = lift(lambda st, iv, v, ti, tk: _validate_tracks_device(
+        v, _states64(st), _f64(iv), calib.ext, tri_invd=ti, tri_ok=tk))(
+            res.states, res.inv_depth, va, tri_invd, tri_ok)
     return res, res_loc, valid_out, tri_ok, tri_invd
 
 

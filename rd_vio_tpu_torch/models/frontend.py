@@ -46,6 +46,9 @@ class Frontend:
         self.on_publish: Optional[Callable[[tuple], None]] = None
         self.initializer: Optional[Initializer] = self._new_initializer()
         self.swt: Optional[SlidingWindowTracker] = None
+        # tracker constructor: the batched runtime (rd_vio_tpu_torch.batch)
+        # swaps in its dispatcher-coupled subclass here
+        self.swt_factory = SlidingWindowTracker
         self.bootstraps = 0  # initializations that succeeded
         self.pending_frame_ids = []
         # (t, frame_id, q, p, v, bg, ba)
@@ -120,7 +123,7 @@ class Frontend:
                 self.initializer.mirror_keyframe_map(ft_map, fid)
             init_map = self.initializer.initialize()
             if init_map is not None:
-                self.swt = SlidingWindowTracker(
+                self.swt = self.swt_factory(
                     init_map, self.config, self.calib, self.caps,
                     noise=self.swt_noise() if self.swt_noise is not None else None,
                 )
@@ -139,7 +142,12 @@ class Frontend:
             if not ok:
                 return
             if self.swt.track():
-                self._publish(fid)
+                # batched runtime: a deferred keyframe tail publishes from
+                # its continuation instead (the state it publishes does not
+                # exist until the batched fetch is applied)
+                hook = getattr(self.swt, "defer_publish_hook", None)
+                if hook is None or not hook(lambda fid=fid: self._publish(fid)):
+                    self._publish(fid)
             else:
                 self.latest_optimized = None
                 self.initializer = self._new_initializer()

@@ -272,10 +272,14 @@ class SlidingWindowTracker:
             if m.frame_num > self.config.sliding_window_size:
                 # steady state: the ENTIRE keyframe step (localize +
                 # triangulate + window BA + validation + marginalization)
-                # chained on the device with one fetch
+                # chained on the device with one fetch. A truthy return
+                # means a subclass deferred the fetch-and-apply tail (the
+                # batched runtime's continuation, rd_vio_tpu_torch.batch);
+                # the epilogue then runs inside that continuation.
                 with T.time("swt.keyframe_fused"):
-                    self._keyframe_fused(spec_loc, frame_j)
-                self._finish_keyframe()
+                    deferred = self._keyframe_fused(spec_loc, frame_j)
+                if not deferred:
+                    self._finish_keyframe()
             else:
                 with T.time("swt.localize_triangulate"):
                     self.track_landmark(spec_loc=spec_loc)

@@ -71,12 +71,17 @@ def poisson_disk_filter(points: torch.Tensor, valid: torch.Tensor,
 
 def poisson_disk_filter_np(points, valid, min_distance: float, width: float,
                            height: float, preset_count: int = 0):
-    """Host (NumPy) twin of `poisson_disk_filter`, the same greedy grid-hash
-    semantics as a Python loop: the re-filter of the feature tracker's
-    host-mask path runs on the host after the mask RANSAC. (The JAX package
-    calls a native C++ filter here when one is built; this loop is its
-    oracle and gives the same mask.)"""
+    """Host twin of `poisson_disk_filter`, the same greedy grid-hash
+    semantics: the re-filter of the feature tracker's host-mask path runs
+    on the host after the mask RANSAC. Uses the native C++ filter when it
+    is available; this loop is its plain version and gives the same mask."""
     import numpy as np
+
+    from rd_vio_tpu_torch import native
+
+    if native.available():
+        return native.poisson_filter(points, valid, min_distance, width, height,
+                                     preset_count=preset_count)
 
     r = float(min_distance)
     cell = r / math.sqrt(2.0)

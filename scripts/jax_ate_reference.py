@@ -1,6 +1,7 @@
 """ATE of the JAX package on the main path's rendered sequence, on the CPU.
 
     JAX_PLATFORMS=cpu python scripts/jax_ate_reference.py [n_frames] [--device-parsac] [--out FILE]
+    JAX_PLATFORMS=cpu python scripts/jax_ate_reference.py --lockstep [n_ticks] [--out FILE]
 
 Runs `rd_vio_tpu.models.odometry.Odometry` synchronously (threaded=False) with
 the JaxImageBackend over the first `n_frames` (default 160) frames of
@@ -24,6 +25,20 @@ and `parsac_essential_chain`) instead of their NumPy twins, and each line
 also gives the calls of the two programs so far (`judge_calls`,
 `chain_calls`); chip_smoke.py's phase G holds the port's threaded run
 against the line of its N.
+
+`--lockstep` runs bench.py's phase 4 instead: the JAX package's
+`rd_vio_tpu.batch.run_sequences_lockstep` over N=4 sequences
+`synthetic.generate(duration=10.0, n_landmarks=1200, max_keypoints=150,
+seed=648 + 7*i)`, each with the `SyntheticBackend` and
+`make_config(light=False)` with the sequence's camera, and the same Caps, for
+`n_ticks` ticks (default 200, the whole sequence). The lockstep run is
+synchronous, so its first T ticks are the run of T ticks: for every T it
+prints the batched keyframe flushes so far, `steady_window_start` of that
+run, each sequence's ATE over its estimates up to tick T, and the tick at
+which the third batched keyframe flush ran. chip_smoke.py's phase H runs
+`H_TICKS = (that tick) + 16` ticks, the smallest count whose steady window
+(from 5 ticks past the third flush) spans >= 10 ticks, and holds the port's
+ATEs against that line.
 """
 
 from __future__ import annotations
@@ -73,7 +88,56 @@ def make_config(K) -> Config:
     return cfg
 
 
+def lockstep(argv):
+    from rd_vio_tpu.batch import runtime
+    from rd_vio_tpu.models.feature_tracker import SyntheticBackend
+
+    i = argv.index("--lockstep")
+    n_ticks = int(argv[i + 1]) if len(argv) > i + 1 and not argv[i + 1].startswith("-") \
+        else 200
+    out = argv[argv.index("--out") + 1] if "--out" in argv else None
+    seqs, cfgs = [], []
+    for s_i in range(4):
+        seq = synthetic.generate(duration=10.0, n_landmarks=1200, max_keypoints=150,
+                                 seed=648 + 7 * s_i)
+        # run_sequences_lockstep runs min(len(t_frame)) ticks
+        seq.t_frame = seq.t_frame[:n_ticks]
+        cfg = make_config(seq.K_mat)
+        seqs.append(seq)
+        cfgs.append(cfg)
+    t0 = time.perf_counter()
+    n, est, stamps, kf = runtime.run_sequences_lockstep(
+        cfgs, [SyntheticBackend(s) for s in seqs], seqs, caps=CAPS,
+        on_tick=lambda k: print(f"tick {k} at {time.perf_counter() - t0:.1f} s",
+                                file=sys.stderr, flush=True))
+    third = next((k for k, c in enumerate(kf) if c >= 3), None)
+    rows = []
+    for T in range(1, n + 1):
+        t_end = seqs[0].t_frame[T - 1]
+        ates = []
+        for seq, e in zip(seqs, est):
+            gt = {round(t, 6): p for t, p in zip(seq.t_frame, seq.p_wb)}
+            pts = [(p, gt[round(t, 6)]) for t, p in e if t <= t_end + 1e-9]
+            ates.append(float(ate_rmse(np.stack([a for a, _ in pts]),
+                                       np.stack([b for _, b in pts])))
+                        if len(pts) >= 3 else None)
+        rows.append({"ticks": T, "kf_flushes": kf[T - 1],
+                     "steady_window_start": runtime.steady_window_start(kf[:T]),
+                     "tracked": [int(sum(t <= t_end + 1e-9 for t, _ in e)) for e in est],
+                     "ate_m": ates, "third_kf_flush_tick": third,
+                     "h_ticks": None if third is None else third + 16})
+        print(json.dumps(rows[-1]), flush=True)
+    print(json.dumps({"wall_s": time.perf_counter() - t0, "ticks": n,
+                      "third_kf_flush_tick": third}), flush=True)
+    if out:
+        with open(out, "w") as fh:
+            json.dump(rows, fh)
+    return 0
+
+
 def main(argv):
+    if "--lockstep" in argv:
+        return lockstep(argv)
     n_frames = int(argv[0]) if argv and not argv[0].startswith("-") else 160
     out = argv[argv.index("--out") + 1] if "--out" in argv else None
     device_parsac = "--device-parsac" in argv

@@ -3,7 +3,8 @@ package, and every module imports on a machine with no nvcc and no CUDA;
 `convert` carries the JAX side's config into the port field by field, and
 the port's checks run in the child process of test_torch_image alone. The
 port's entry points compute on the GPU unless the caller names another
-device: Odometry and the calibration's device constants included."""
+device: Odometry, the batch runtime and the calibration's device constants
+included."""
 
 import subprocess
 import sys
@@ -51,7 +52,8 @@ def _check_imports_without_jax():
     for m in ("models.odometry", "models.frontend", "models.initializer",
               "models.sliding_window_tracker", "models.builders", "ops.homography",
               "ops.parsac_np", "ops.frontend_step_np", "utils.trajectory",
-              "ops.parsac", "ops.pnp", "ops.essential5"):
+              "ops.parsac", "ops.pnp", "ops.essential5", "native", "batch",
+              "batch.dispatcher", "batch.swt", "batch.runtime", "utils.batch_eval"):
         assert f"rd_vio_tpu_torch.{m}" in mods, m
     code = (
         "import sys, importlib\n"
@@ -151,6 +153,43 @@ def _check_entry_points_default_to_the_card():
         pass
     else:
         raise AssertionError("Odometry on another device than its backend")
+
+
+def _check_batch_runtime_defaults_to_the_card():
+    """BatchedVIO and run_sequences_lockstep: the card unless the caller
+    asks for the CPU; without a card the default raises and starts no
+    thread. On the CPU every sequence's tracker is the dispatcher-coupled
+    BatchSWT, sharing one dispatcher."""
+    import functools
+    import threading
+
+    from rd_vio_tpu_torch.batch import BatchedVIO, run_sequences_lockstep
+    from rd_vio_tpu_torch.batch.swt import BatchSWT
+
+    cfgs = [ConfigT(), ConfigT()]
+    assert inspect.signature(BatchedVIO).parameters["device"].default is None
+    assert inspect.signature(run_sequences_lockstep).parameters["device"].default is None
+    n_threads = threading.active_count()
+    for kw in ({}, {"device": "cuda"}):
+        try:
+            BatchedVIO(cfgs, [SyntheticBackend(None)] * 2, **kw)
+        except RuntimeError as e:
+            assert "no CUDA device" in str(e)
+        else:
+            raise AssertionError(f"BatchedVIO({kw}) made without a card")
+    assert threading.active_count() == n_threads
+    vio = BatchedVIO(cfgs, [SyntheticBackend(None)] * 2, device="cpu")
+    assert vio.device == torch.device("cpu") and vio.disp.device == torch.device("cpu")
+    for i, odo in enumerate(vio.odos):
+        f = odo.frontend.swt_factory
+        assert isinstance(f, functools.partial) and f.func is BatchSWT
+        assert f.keywords == {"dispatcher": vio.disp, "seq_index": i}
+    vio.close()  # a flush with nothing submitted runs no program
+    assert "batched_kf" not in builders_t.PROGRAM_STATS
+
+
+def test_batch_runtime_defaults_to_the_card(child):
+    child(_check_batch_runtime_defaults_to_the_card)
 
 
 def _check_counters_under_threads():
