@@ -86,18 +86,39 @@ reverse track and one level of it) from the checkout, then:
      batch_replay). Prints the steady aggregate frames/s (bench.py's
      batch_fps_per_chip) beside F's frames/s, kernels per steady tick
      beside F's kernels per frame, the busy share, LM iterations per
-     batched solve, host syncs per tick and the spans.
+     batched solve, host syncs per tick and the spans;
+  I. the EuRoC runner's path in a fourth process, started with H: the first
+     I_FRAMES (84) frames of B's sequence rendered at 752x480, distorted on
+     the host with EuRoC cam0's published radtan coefficients and written
+     as a EuRoC mav0 layout (uint8 PNGs, imu0 / cam0 / ground-truth CSVs, a
+     sensor.yaml with camera_distortion_flag 1, bench.py's reference
+     profile as setting.yaml; scripts/euroc_layout.py), then
+     examples/torch_run_euroc.py's `run` over it, threaded, on the card
+     (load_config of both files, the native EuRoC loader where libpng
+     builds, else PIL, the remap tables on the card, TorchImageBackend,
+     Odometry). Checks: the config carries both files' values; the reader
+     is the native loader exactly when it builds (and then read every
+     frame); tracking reached with finite published poses, no worker error;
+     one fused LK launch per frame pair and no level launch; the ATE
+     (`associate` against the layout's ground truth) within I_ATE_BOUND_M
+     of the JAX package's run_euroc on the CPU over the same layout; the
+     card's remap of frame 0 against the CPU's (integer parts equal on
+     >= 99.9% of pixels). Prints the reader, frames/s over the tracked
+     frames, the spans ds.load and ds.undistort per frame, host syncs per
+     frame, the remap's max |difference|, the pixels whose integer part
+     differs and its device ms.
 
 Exits non-zero, with no result line, without a CUDA device or when any
 check fails. Before the last line come an `{"estimator": ...}` line with
 phase E's numbers, an `{"odometry": ...}` line with phase F's, an
 `{"odometry_threaded": ...}` line with phase G's, a `{"batch": ...}` line
-with phase H's, and the `{"kernels": ...}`
-line with both LK kernels' launch counts (the fused kernel's: phases F and G,
-the main path, each counted from 0 just before it; the level kernel's: phase
-D), errors, times and bounds (the estimator and the batch runtime add no
+with phase H's, an `{"euroc": ...}` line with phase I's, and the
+`{"kernels": ...}` line with both LK kernels' launch counts (the fused
+kernel's: phases F, G and I, the main path and the runner's, each counted
+from 0 just before it; the level kernel's: phase D), errors, times and
+bounds (the estimator, the batch runtime and the dataset layer add no
 kernel: they are plain PyTorch, as they are XLA in the JAX package, and
-the native library is host C++ in both); the last line of stdout
+the native libraries are host C++ in both); the last line of stdout
 is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -1057,11 +1078,13 @@ class PhaseChild:
         self.log.seek(0)
         sys.stdout.write(self.log.read())
         self.log.close()
-        print(f"[{self.phase}] phase took {time.perf_counter() - self.t0:.1f} s in its own "
-              f"process (concurrent with the others)")
         check(rc == 0, f"phase {self.phase}: its process exited with {rc}")
         with open(self.out) as fh:
-            return json.load(fh)
+            out = json.load(fh)
+        print(f"[{self.phase}] phase took {out['wall_s']:.1f} s in its own process "
+              f"(concurrent with the others; collected after "
+              f"{time.perf_counter() - self.t0:.1f} s)")
+        return out
 
     def stop(self):
         if self.proc.poll() is None:
@@ -1075,9 +1098,10 @@ H_CHILD_TIMEOUT_S = 1080
 
 def phase_child(phase, out_path):
     """The body of a phase's own process: the same setup as main's, then
-    phase G or H, its record written to `out_path`."""
+    phase G, H or I, its record written to `out_path`."""
     if not torch.cuda.is_available():
         return 1
+    t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if phase == "G":
@@ -1085,8 +1109,12 @@ def phase_child(phase, out_path):
         seq, rend, frames = render(G_FRAMES)
         rec, launches = phase_g(make_config(rend.K), seq, frames, DEV)
         out = {"record": rec, "launches": launches}
+    elif phase == "I":
+        rec, launches = phase_i(DEV)
+        out = {"record": rec, "launches": launches}
     else:
         out = {"record": phase_h(DEV)}
+    out["wall_s"] = time.perf_counter() - t0
     with open(out_path, "w") as fh:
         json.dump(out, fh)
     return 0
@@ -1488,8 +1516,216 @@ def replay_rows(a, mask, priors, ct, it, out_b, dev):
     return out
 
 
+# phase I: the EuRoC runner's path (examples/torch_run_euroc.py) over a
+# EuRoC-layout copy of B's sequence at EuRoC cam0's full 752x480, distorted
+# with its published radtan coefficients. I_FRAMES is the least count past
+# the JAX package's third fused keyframe step on the same layout on the CPU:
+# `JAX_PLATFORMS=cpu python scripts/jax_ate_reference.py --euroc 120`, whose
+# first line with kf_fused 3 is n = 83 (first tracked frame 40); its ATE at
+# n = 84 is I_ATE_JAX_CPU_M (run_euroc, synchronous, PIL reader)
+I_FRAMES = 84
+I_ATE_JAX_CPU_M = 0.010381161302814345
+I_ATE_BOUND_M = max(2 * I_ATE_JAX_CPU_M, I_ATE_JAX_CPU_M + 0.01)
+I_REMAP_REPS = 20  # remaps timed back to back for the device ms per remap
+I_CHILD_TIMEOUT_S = 960
+
+
+def load_runner():
+    """examples/torch_run_euroc.py as a module (examples/ is no package)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples",
+                        "torch_run_euroc.py")
+    spec = importlib.util.spec_from_file_location("torch_run_euroc", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def write_euroc_layout(root):
+    """B's sequence, its first I_FRAMES frames rendered at 752x480 (in f64,
+    before rounding) and distorted with EuRoC cam0's radtan coefficients, as
+    a mav0 layout with a sensor.yaml and bench.py's reference profile as
+    setting.yaml (scripts/euroc_layout.py). Returns (paths, seq, rend)."""
+    from rd_vio_tpu_torch.ops import camera
+    from scripts.euroc_layout import EUROC_CAM0_RADTAN, write_layout
+
+    seq = synthetic.generate(duration=8.0, n_landmarks=1200, max_keypoints=150,
+                             excitation=0.05)
+    rend = SequenceRenderer(seq, image_size=(W_IMG, H_IMG))
+    dist = np.asarray(EUROC_CAM0_RADTAN)
+    paths = write_layout(
+        root, seq, [rend.render(k) for k in range(I_FRAMES)], rend.K, dist,
+        lambda p: camera.undistort_points_pixel(torch.from_numpy(p), rend.K, dist).numpy())
+    return paths, seq, rend
+
+
+def remap_card_vs_cpu(cfg, png, dev):
+    """`remap_bilinear` on frame 0 of the layout on the card and on the CPU,
+    with the runner's tables: max |difference|, pixels whose integer part
+    differs, and the device ms per remap (CUDA events around I_REMAP_REPS
+    back-to-back remaps after a warm-up)."""
+    from PIL import Image
+
+    from rd_vio_tpu_torch.ops.image.undistort import build_remap, remap_bilinear
+
+    img = np.asarray(Image.open(png).convert("L"), dtype=np.float32)
+    W, H = cfg.camera_resolution
+    my, mx = build_remap(cfg.camera_intrinsic, cfg.camera_distortion,
+                         cfg.camera_distortion_model, W, H)
+    cpu = remap_bilinear(*(torch.from_numpy(a) for a in (img, my, mx))).numpy()
+    args = [torch.from_numpy(a).to(dev) for a in (img, my, mx)]
+    card = remap_bilinear(*args)
+    for _ in range(3):
+        remap_bilinear(*args)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(I_REMAP_REPS):
+        remap_bilinear(*args)
+    end.record()
+    torch.cuda.synchronize()
+    card = card.cpu().numpy()
+    d = np.abs(card - cpu)
+    rec = {"max_abs_diff": float(d.max()),
+           "integer_part_differs": int((np.floor(card) != np.floor(cpu)).sum()),
+           "pixels": int(card.size), "device_ms_per_remap": start.elapsed_time(end) / I_REMAP_REPS,
+           "zero_share": float((card == 0).mean())}
+    print(f"[I] remap_bilinear frame 0, card against CPU: max |diff| {rec['max_abs_diff']:.3e}, "
+          f"integer part differs on {rec['integer_part_differs']} of {rec['pixels']} pixels; "
+          f"device {rec['device_ms_per_remap']:.4f} ms per remap (CUDA events, "
+          f"{I_REMAP_REPS} back to back)")
+    check(np.isfinite(card).all(), "phase I: a non-finite remapped pixel")
+    check(rec["integer_part_differs"] <= 0.001 * card.size,
+          "phase I: the card's remap differs in integer part on > 0.1% of pixels")
+    return rec
+
+
+def phase_i(dev):
+    """examples/torch_run_euroc.py's `run` (threaded, on the card) over the
+    layout of write_euroc_layout; returns the `euroc` record and the fused LK
+    kernel's launches."""
+    from rd_vio_tpu_torch import native
+    from rd_vio_tpu_torch.utils.trajectory import associate
+    from scripts.euroc_layout import EUROC_CAM0_RADTAN, REFERENCE_SETTINGS
+
+    runner = load_runner()
+    built = runner.build_all(dev)  # before the clock, as the runner does
+    print(f"[I] built before the clock: LK kernel, native host library "
+          f"{built['native']}, native EuRoC loader {built['euroc_loader']}")
+    with tempfile.TemporaryDirectory() as tmp:
+        t_w = time.perf_counter()
+        (mav0, sensor_yaml, setting_yaml), seq, rend = write_euroc_layout(tmp)
+        print(f"[I] wrote a {W_IMG}x{H_IMG} EuRoC layout of {I_FRAMES} frames (radtan "
+              f"{list(EUROC_CAM0_RADTAN)}) in {time.perf_counter() - t_w:.1f} s")
+
+        klt.launches = klt.fwd_rev_launches = 0
+        GLOBAL_TIMER.reset()
+        builders.KF_FUSED_COUNT.n = 0
+        native.CALLS.clear()
+        published, box = [], {}
+
+        def on_odometry(odo):
+            box["odo"] = odo
+            box["workers"] = (odo.handler._ft_worker, odo.handler._fe_worker)
+            odo.frontend.on_publish = lambda lo: published.append(
+                (lo[0], lo[3].copy(), time.perf_counter()))
+
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                res = runner.run(mav0, sensor_yaml, setting_yaml, device=dev, threaded=True,
+                                 on_odometry=on_odometry)
+                torch.cuda.synchronize()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                if "odo" in box:
+                    healthy = box["odo"].healthy()
+                    box["odo"].close()  # raises a worker's error
+        syncs = sum("synchronizing CUDA operation" in str(w.message) for w in caught)
+        launches, level_launches = klt.fwd_rev_launches, klt.launches
+        host = GLOBAL_TIMER.stats()
+        calls = dict(native.CALLS)
+        n_kf = builders.KF_FUSED_COUNT.n
+        cfg = res["config"]
+        remap = remap_card_vs_cpu(cfg, os.path.join(
+            mav0, "cam0", "data", sorted(os.listdir(os.path.join(mav0, "cam0", "data")))[0]),
+            dev)
+
+    # load_config read both files: the sensor file's camera and distortion,
+    # the setting file's profile
+    check(cfg.camera_distortion_flag == 1 and cfg.camera_resolution == (W_IMG, H_IMG)
+          and np.array_equal(cfg.camera_distortion, EUROC_CAM0_RADTAN)
+          and np.allclose(cfg.camera_intrinsic, rend.K, rtol=1e-15, atol=0),
+          "phase I: load_config did not take the sensor.yaml's camera")
+    s = REFERENCE_SETTINGS
+    check(cfg.sliding_window_size == s["sliding_window"]["size"]
+          and cfg.feature_tracker_max_keypoint_detection
+          == s["feature_tracker"]["max_keypoint_detection"]
+          and cfg.solver_iteration_limit == s["solver"]["iteration_limit"]
+          and cfg.parsac_flag is True,
+          "phase I: load_config did not take the setting.yaml's profile")
+    reader = res["reader"]
+    check(reader == ("native" if built["euroc_loader"] else "PIL"),
+          f"phase I: reader {reader} with the native loader available "
+          f"{built['euroc_loader']}")
+    if built["euroc_loader"]:
+        check(calls.get("euroc_load_image", 0) == I_FRAMES,
+              "phase I: the native EuRoC loader did not read every frame")
+    check(calls.get("preintegrate_batch", 0) > 0, "phase I: the native library was not used")
+    check(healthy, "phase I: a pipeline worker failed")
+    check(not any(w.is_alive() for w in box["workers"]),
+          "phase I: a worker thread is alive after close()")
+    check(res["frames"] == I_FRAMES, f"phase I: {res['frames']} frames read")
+    check(bool(published), "phase I: the system never reached tracking")
+    est_t = np.array([t for t, _, _ in published])
+    est_p = np.stack([p for _, p, _ in published])
+    check(np.isfinite(est_p).all(), "phase I: a non-finite published pose")
+    gt = res["gt"]
+    ie, ig = associate(est_t, gt["t"])
+    check(len(ie) == len(est_t), "phase I: an estimate without ground truth")
+    ate = float(ate_rmse(est_p[ie], gt["p"][ig]))
+    first = int(np.flatnonzero(np.isclose(gt["t"], est_t[0]))[0])
+    clock = np.array([c for _, _, c in published])
+    fps = (len(published) - 1) / (clock[-1] - clock[0]) if len(published) > 1 else float("nan")
+    per_frame = {k: host[k] for k in ("ds.load", "ds.undistort") if k in host}
+    check("ds.undistort" in per_frame and per_frame["ds.undistort"]["n"] == I_FRAMES,
+          "phase I: not every frame was undistorted")
+    rec = {
+        "frames": I_FRAMES, "width": W_IMG, "height": H_IMG,
+        "distortion": list(EUROC_CAM0_RADTAN), "reader": reader,
+        "native_euroc_loader": built["euroc_loader"], "first_tracked_frame": first,
+        "tracked_frames": len(published), "keyframe_fused_steps": n_kf,
+        "frames_per_s_tracked": fps, "wall_s_to_join": res["wall_s"],
+        "spans_ms": {k: {"n": v["n"], "mean": v["mean_ms"], "p50": v["p50_ms"],
+                         "p90": v["p90_ms"]} for k, v in host.items()},
+        "host_syncs_per_frame": syncs / I_FRAMES, "native_calls": calls,
+        "remap": remap, "lk_fwd_rev_launches": launches, "lk_level_launches": level_launches,
+        "ate_m": ate, "ate_jax_cpu_m": I_ATE_JAX_CPU_M, "ate_bound_m": I_ATE_BOUND_M,
+    }
+    print(f"[I] EuRoC runner (threaded) over {I_FRAMES} frames {W_IMG}x{H_IMG}, radtan on, "
+          f"reader {reader}: first tracked frame {first}, {len(published)} tracked, fused "
+          f"keyframe steps {n_kf}, join after {res['wall_s']:.1f} s")
+    print(f"[I] {fps:.3f} frames/s over the tracked frames (threaded)")
+    for k, v in sorted(per_frame.items()):
+        print(f"[I] span {k} per frame: mean {v['mean_ms']:.2f} ms p50 {v['p50_ms']:.2f} "
+              f"p90 {v['p90_ms']:.2f} (n={v['n']})")
+    print(f"[I] host syncs per frame: {syncs / I_FRAMES:.1f} ({syncs} in all)")
+    print(f"[I] native calls: {calls}")
+    print(f"[I] lk_fwd_rev kernel launches: {launches} (tracked frame pairs = "
+          f"{I_FRAMES - 1}); lk_level launches: {level_launches}")
+    print(f"[I] ATE (SE3-aligned RMSE of {len(est_p)} estimates, associated) {ate:.5f} m; "
+          f"JAX on the CPU (run_euroc, synchronous) {I_ATE_JAX_CPU_M:.5f} m; bound "
+          f"{I_ATE_BOUND_M:.5f} m")
+    check(launches == I_FRAMES - 1,
+          f"phase I: {launches} fused LK launches, not {I_FRAMES - 1}")
+    check(level_launches == 0, "phase I: the runner launched the level kernel")
+    check(ate <= I_ATE_BOUND_M, f"phase I: ATE {ate:.5f} m > {I_ATE_BOUND_M:.5f} m")
+    return rec, launches
+
+
 def main(argv):
-    if "--phase-child" in argv:  # phase G's or H's own process (PhaseChild)
+    if "--phase-child" in argv:  # phase G's, H's or I's own process (PhaseChild)
         i = argv.index("--phase-child")
         return phase_child(argv[i + 1], argv[i + 2])
     if not torch.cuda.is_available():
@@ -1509,14 +1745,22 @@ def main(argv):
     from rd_vio_tpu_torch import native
 
     with tempfile.TemporaryDirectory() as tmp:
-        # phase H first, in its own process: it runs at once with A-G
+        # phases H and I first, each in its own process: they run at once
+        # with A-G
         child_h = PhaseChild(tmp, "H", H_CHILD_TIMEOUT_S)
+        child_i = PhaseChild(tmp, "I", I_CHILD_TIMEOUT_S)
         try:
             records, fused, level = run_a_to_g(dev, tmp, native)
             records["batch"] = child_h.finish()["record"]
+            out_i = child_i.finish()
         finally:
             child_h.stop()
+            child_i.stop()
     compare_h_with_f(records["batch"], records["odometry"])
+    records["euroc"] = out_i["record"]
+    # phase I's launches, counted from 0 in its process just before its run
+    fused["launches_by_phase"]["I"] = out_i["launches"]
+    fused["launches"] += out_i["launches"]
 
     for k, v in records.items():
         print(json.dumps({k: v}))

@@ -1,22 +1,28 @@
 """Native (C++) host components: the batched IMU preintegrator, the mean-only
-IMU predictor, the greedy Poisson-disk filter and the sensor queue.
+IMU predictor, the greedy Poisson-disk filter, the sensor queue and the EuRoC
+loader.
 
-Port of the JAX package's native/__init__.py, without its EuRoC loader (it
-links libpng; it comes with the datasets). The sources beside this file
-(`preintegrator.cpp`, `sensor_queue.cpp`) are the JAX package's, code for
-code. At first use they are compiled with g++ (the JAX package's flags:
--O2 -std=c++17 -shared -fPIC -pthread) into rd_vio_tpu_torch/_build/, under
-a name that carries the sources' hash, and bound through ctypes. Several
-processes may build at once (the tests run under xdist): each compiles to a
-temporary name and `os.replace`s it into place.
+Port of the JAX package's native/__init__.py. The sources beside this file
+are the JAX package's, code for code (comments may differ). They build into
+two libraries: `preintegrator.cpp` and `sensor_queue.cpp` into the host
+library, and `euroc_loader.cpp` (CSV parse, libpng decode to f32, a
+prefetch thread pool) into a library of its own that links libpng, so that
+the host library builds where libpng is missing. At first use each is
+compiled with g++ (the JAX package's flags: -O2 -std=c++17 -shared -fPIC
+-pthread) into rd_vio_tpu_torch/_build/, under a name that carries its
+sources' hash, and bound through ctypes. Several processes may build at once
+(the tests run under xdist): each compiles to a temporary name and
+`os.replace`s it into place.
 
 ctypes releases the interpreter lock for the duration of a foreign call, so
 a threaded pipeline's other worker runs meanwhile.
 
-`available()` is False where the library cannot be built (no g++); the
+`available()` is False where the host library cannot be built (no g++); the
 callers (ops/preintegration_np.py, ops/poisson_disk.py) then take their
-NumPy loops. `CALLS` counts the calls of each entry point, so that a run can
-show that the native path was taken.
+NumPy loops. `euroc_available()` is False where the loader cannot be built
+(no libpng headers); the EuRoC runner then reads through PIL. `CALLS` counts
+the calls of each entry point, so that a run can show that the native path
+was taken.
 """
 
 from __future__ import annotations
@@ -32,14 +38,14 @@ from pathlib import Path
 
 import numpy as np
 
+from rd_vio_tpu_torch.utils.metrics import GLOBAL_TIMER
+
 _HERE = Path(__file__).resolve().parent
 _SOURCES = ("sensor_queue.cpp", "preintegrator.cpp")
+_EUROC_SOURCES = ("euroc_loader.cpp",)
+_EUROC_LIBS = ("-lpng",)
 BUILD_DIR = _HERE.parent / "_build"
 _FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC", "-pthread")
-
-_lock = threading.Lock()
-_lib = None
-_error = None  # the build's or load's exception, once it failed
 
 # calls of each native entry point (guarded by _calls_lock: the threaded
 # pipeline calls them from two workers)
@@ -52,24 +58,32 @@ def _count(name: str):
         CALLS[name] += 1
 
 
-def library_path() -> Path:
-    """Where the library of the current sources is (or will be) built."""
+def _library_path(stem: str, sources, libs) -> Path:
     h = hashlib.sha256()
-    for s in _SOURCES:
+    for s in sources:
         h.update((_HERE / s).read_bytes())
-    h.update(" ".join(_FLAGS).encode())
-    return BUILD_DIR / f"librdvio_native_{h.hexdigest()[:12]}.so"
+    h.update(" ".join(_FLAGS + libs).encode())
+    return BUILD_DIR / f"{stem}_{h.hexdigest()[:12]}.so"
 
 
-def build() -> Path:
-    """Compile the sources unless their library is there already."""
-    so = library_path()
+def library_path() -> Path:
+    """Where the host library of the current sources is (or will be) built."""
+    return _library_path("librdvio_native", _SOURCES, ())
+
+
+def euroc_library_path() -> Path:
+    """Where the EuRoC loader's library is (or will be) built."""
+    return _library_path("librdvio_euroc", _EUROC_SOURCES, _EUROC_LIBS)
+
+
+def _build(so: Path, sources, libs) -> Path:
+    """Compile `sources` into `so` unless it is there already."""
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = ["g++", *_FLAGS, *(str(_HERE / s) for s in _SOURCES), "-o", tmp]
+    cmd = ["g++", *_FLAGS, *(str(_HERE / s) for s in sources), "-o", tmp, *libs]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
@@ -79,6 +93,16 @@ def build() -> Path:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return so
+
+
+def build() -> Path:
+    """Compile the host library unless it is there already."""
+    return _build(library_path(), _SOURCES, ())
+
+
+def build_euroc() -> Path:
+    """Compile the EuRoC loader's library unless it is there already."""
+    return _build(euroc_library_path(), _EUROC_SOURCES, _EUROC_LIBS)
 
 
 def _bind(path: Path) -> ctypes.CDLL:
@@ -105,26 +129,70 @@ def _bind(path: Path) -> ctypes.CDLL:
     return lib
 
 
-def load_library() -> ctypes.CDLL:
-    """Build (once per source hash) and load the library; raises on failure
+def _bind_euroc(path: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    i64 = ctypes.c_int64
+    cint_p = ctypes.POINTER(ctypes.c_int)
+    lib.rdvio_euroc_open.argtypes = [ctypes.c_char_p, ctypes.c_int]
+    lib.rdvio_euroc_open.restype = i64
+    lib.rdvio_euroc_imu_count.argtypes = [i64]
+    lib.rdvio_euroc_imu_count.restype = i64
+    lib.rdvio_euroc_imu_data.argtypes = [i64, ctypes.POINTER(ctypes.c_double)]
+    lib.rdvio_euroc_imu_data.restype = None
+    lib.rdvio_euroc_frame_count.argtypes = [i64]
+    lib.rdvio_euroc_frame_count.restype = i64
+    lib.rdvio_euroc_frame_times.argtypes = [i64, ctypes.POINTER(ctypes.c_double)]
+    lib.rdvio_euroc_frame_times.restype = None
+    lib.rdvio_euroc_image_size.argtypes = [i64, cint_p, cint_p]
+    lib.rdvio_euroc_image_size.restype = None
+    lib.rdvio_euroc_load_image.argtypes = [i64, i64, ctypes.POINTER(ctypes.c_float)]
+    lib.rdvio_euroc_load_image.restype = ctypes.c_int
+    lib.rdvio_euroc_prefetch.argtypes = [i64, i64, i64]
+    lib.rdvio_euroc_prefetch.restype = None
+    lib.rdvio_euroc_close.argtypes = [i64]
+    lib.rdvio_euroc_close.restype = None
+    return lib
+
+
+class _Loader:
+    """Build (once per source hash) and load one library; raises on failure
     (and again on every later call, without another attempt)."""
-    global _lib, _error
-    with _lock:
-        if _lib is not None:
-            return _lib
-        if _error is not None:
-            raise RuntimeError("native library unavailable") from _error
-        try:
-            _lib = _bind(build())
-        except Exception as e:  # noqa: BLE001 - kept and re-raised
-            _error = e
-            raise
-        return _lib
+
+    def __init__(self, build_fn, bind_fn):
+        self._build, self._bind = build_fn, bind_fn
+        self._lock = threading.Lock()
+        self._lib = None
+        self._error = None  # the build's or load's exception, once it failed
+
+    def __call__(self) -> ctypes.CDLL:
+        with self._lock:
+            if self._lib is not None:
+                return self._lib
+            if self._error is not None:
+                raise RuntimeError("native library unavailable") from self._error
+            try:
+                self._lib = self._bind(self._build())
+            except Exception as e:  # noqa: BLE001 - kept and re-raised
+                self._error = e
+                raise
+            return self._lib
+
+
+load_library = _Loader(build, _bind)
+load_euroc_library = _Loader(build_euroc, _bind_euroc)
 
 
 def available() -> bool:
     try:
         load_library()
+        return True
+    except Exception:  # noqa: BLE001
+        return False
+
+
+def euroc_available() -> bool:
+    try:
+        load_euroc_library()
         return True
     except Exception:  # noqa: BLE001
         return False
@@ -218,3 +286,52 @@ class NativeSensorQueue:
         if self.handle:
             self.lib.rdvio_queue_destroy(self.handle)
             self.handle = 0
+
+
+class NativeEurocDataset:
+    """Fast EuRoC reader backed by the native loader (CSV + libpng decode with
+    background prefetch)."""
+
+    def __init__(self, mav0_dir: str, n_threads: int = 2):
+        self.lib = load_euroc_library()
+        _count("euroc_open")
+        self.handle = self.lib.rdvio_euroc_open(mav0_dir.encode(), n_threads)
+        if not self.handle:
+            raise IOError(f"failed to open EuRoC dir {mav0_dir}")
+        n_imu = self.lib.rdvio_euroc_imu_count(self.handle)
+        buf = np.zeros((n_imu, 7))
+        self.lib.rdvio_euroc_imu_data(self.handle, _p(buf))
+        self.imu_t = buf[:, 0].copy()
+        self.gyro = buf[:, 1:4].copy()
+        self.accel = buf[:, 4:7].copy()
+        ts = np.zeros(self.lib.rdvio_euroc_frame_count(self.handle))
+        self.lib.rdvio_euroc_frame_times(self.handle, _p(ts))
+        self.frame_t = ts
+        w, h = ctypes.c_int(), ctypes.c_int()
+        self.lib.rdvio_euroc_image_size(self.handle, ctypes.byref(w), ctypes.byref(h))
+        self.width, self.height = w.value, h.value
+
+    def load_image(self, idx: int, prefetch_ahead: int = 8) -> np.ndarray:
+        """Frame `idx` as (H, W) f32 grayscale; queues the next
+        `prefetch_ahead` frames for the decode threads."""
+        _count("euroc_load_image")
+        out = np.zeros((self.height, self.width), np.float32)
+        with GLOBAL_TIMER.time("ds.load"):
+            rc = self.lib.rdvio_euroc_load_image(
+                self.handle, idx, out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
+        if rc != 0:
+            raise IOError(f"image decode failed for frame {idx} (rc={rc})")
+        if prefetch_ahead:
+            self.lib.rdvio_euroc_prefetch(self.handle, idx + 1, prefetch_ahead)
+        return out
+
+    def close(self):
+        if self.handle:
+            self.lib.rdvio_euroc_close(self.handle)
+            self.handle = 0
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:  # noqa: BLE001 - interpreter teardown
+            pass

@@ -21,10 +21,11 @@ with its wrapper, its plain PyTorch version and its launch counter:
   "windowed" form of the JAX package (ops/image/klt.py `prepare_level` +
   `_lk_level_windowed`): per keypoint a SW x SW search window, a bilinear
   template built as `Wy @ S @ Wx^T` with two-nonzero blend matrices, and
-  Gauss-Newton steps on the 2x2 normal matrix. It runs all `iters`
-  iterations with a per-keypoint active mask (a converged keypoint no
-  longer moves, so this equals the early exit) and never synchronises with
-  the host. Counter: `launches`. `lk_level_iters` is the same launch and
+  Gauss-Newton steps on the 2x2 normal matrix. It runs `iters` iterations
+  with a per-keypoint active mask (a converged keypoint no longer moves, so
+  this equals the early exit) and on the card never synchronises with the
+  host; on the CPU it stops once no keypoint is active (the same result).
+  Counter: `launches`. `lk_level_iters` is the same launch and
   also returns the iterations each keypoint ran.
 
 On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
@@ -164,6 +165,7 @@ def _lk_level_plain_iters(img_prev, img_next, pts, guess, valid, iters, eps):
     )
     flow = guess - pts
     active = valid.clone()
+    on_cpu = pts.device.type == "cpu"
     n_iter = torch.zeros(pts.shape[0], dtype=torch.int32, device=pts.device)
     for _ in range(iters):
         n_iter = n_iter + active
@@ -182,6 +184,8 @@ def _lk_level_plain_iters(img_prev, img_next, pts, guess, valid, iters, eps):
         step = torch.stack([dx, dy], dim=-1)
         flow = flow + torch.where(active[:, None], step, 0.0)
         active = active & ((step * step).sum(dim=-1) >= eps * eps)
+        if on_cpu and not bool(active.any()):
+            break  # the rest would change nothing (on the card: no host sync)
     return pts + flow, min_eig, n_iter
 
 

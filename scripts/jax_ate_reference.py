@@ -2,6 +2,7 @@
 
     JAX_PLATFORMS=cpu python scripts/jax_ate_reference.py [n_frames] [--device-parsac] [--out FILE]
     JAX_PLATFORMS=cpu python scripts/jax_ate_reference.py --lockstep [n_ticks] [--out FILE]
+    JAX_PLATFORMS=cpu python scripts/jax_ate_reference.py --euroc [n_frames] [--out FILE]
 
 Runs `rd_vio_tpu.models.odometry.Odometry` synchronously (threaded=False) with
 the JaxImageBackend over the first `n_frames` (default 160) frames of
@@ -39,6 +40,19 @@ which the third batched keyframe flush ran. chip_smoke.py's phase H runs
 `H_TICKS = (that tick) + 16` ticks, the smallest count whose steady window
 (from 5 ticks past the third flush) spans >= 10 ticks, and holds the port's
 ATEs against that line.
+
+`--euroc` runs the EuRoC runner's path instead: the first `n_frames`
+(default 120) frames of the phase-1 sequence, rendered at 752x480 and
+distorted with EuRoC cam0's radtan coefficients, written as a mav0 layout
+with a sensor.yaml and bench.py's reference profile as setting.yaml
+(scripts/euroc_layout.py, the writer chip_smoke.py's phase I uses), then
+`rd_vio_tpu.datasets.euroc.run_euroc` over it (synchronous, PIL reader,
+undistortion on). For every prefix of N frames it prints the ATE of the
+estimates run_euroc has collected after frame N (`associate` against the
+layout's ground truth, then `ate_rmse`; a synchronous run's first N frames
+are the run with max_frames=N), the tracked estimates and the fused
+keyframe steps so far. chip_smoke.py's phase I runs the least N past the
+third fused keyframe step and holds the port's ATE against that line.
 """
 
 from __future__ import annotations
@@ -135,9 +149,78 @@ def lockstep(argv):
     return 0
 
 
+def euroc(argv):
+    import tempfile
+
+    import jax.numpy as jnp
+
+    from rd_vio_tpu.datasets import euroc as euroc_j
+    from rd_vio_tpu.models import odometry as odometry_j
+    from rd_vio_tpu.ops import camera
+    from rd_vio_tpu.utils.trajectory import associate
+    from scripts.euroc_layout import EUROC_CAM0_RADTAN, write_layout
+
+    i = argv.index("--euroc")
+    n_frames = int(argv[i + 1]) if len(argv) > i + 1 and not argv[i + 1].startswith("-") \
+        else 120
+    out = argv[argv.index("--out") + 1] if "--out" in argv else None
+    seq = synthetic.generate(duration=8.0, n_landmarks=1200, max_keypoints=150,
+                             excitation=0.05)
+    rend = SequenceRenderer(seq, image_size=(752, 480))
+    K, dist = rend.K, np.asarray(EUROC_CAM0_RADTAN)
+    rows = []
+
+    class Recording(odometry_j.Odometry):
+        """Collects after each frame what run_euroc collects, and prints the
+        prefix's line."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.est_t, self.est_p = [], []
+
+        def add_frame(self, t, image):
+            super().add_frame(t, image)
+            if self.state() == 1:
+                ls = self.handler.get_latest_state()
+                if ls is not None:
+                    self.est_t.append(ls[0])
+                    self.est_p.append(ls[2])
+            ate = None
+            if len(self.est_p) >= 3:
+                ie, ig = associate(np.asarray(self.est_t), gt["t"])
+                ate = float(ate_rmse(np.asarray(self.est_p)[ie], gt["p"][ig]))
+            rows.append({"n": len(rows) + 1, "state": self.state(),
+                         "tracked": len(self.est_p), "kf_fused": builders.KF_FUSED_COUNT.n,
+                         "ate_m": ate, "wall_s": round(time.perf_counter() - t0, 1)})
+            print(json.dumps(rows[-1]), flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        mav0, sensor_yaml, setting_yaml = write_layout(
+            tmp, seq, [rend.render(k) for k in range(n_frames)], K, dist,
+            lambda p: np.asarray(camera.undistort_points_pixel(
+                jnp.asarray(p), jnp.asarray(K), jnp.asarray(dist))))
+        gt = euroc_j.EurocDataset._read_gt(
+            os.path.join(mav0, "state_groundtruth_estimate0", "data.csv"))
+        builders.KF_FUSED_COUNT.n = 0
+        odometry_j.Odometry = Recording  # run_euroc imports it at its call
+        t0 = time.perf_counter()
+        est_t, est_p, _, odo = euroc_j.run_euroc(mav0, sensor_yaml, setting_yaml)
+    third = next((r["n"] for r in rows if r["kf_fused"] >= 3), None)
+    print(json.dumps({"wall_s": time.perf_counter() - t0, "frames": len(rows),
+                      "third_kf_fused_frame": third,
+                      "same_estimates": bool(np.array_equal(est_p, np.asarray(odo.est_p)))}),
+          flush=True)
+    if out:
+        with open(out, "w") as fh:
+            json.dump(rows, fh)
+    return 0
+
+
 def main(argv):
     if "--lockstep" in argv:
         return lockstep(argv)
+    if "--euroc" in argv:
+        return euroc(argv)
     n_frames = int(argv[0]) if argv and not argv[0].startswith("-") else 160
     out = argv[argv.index("--out") + 1] if "--out" in argv else None
     device_parsac = "--device-parsac" in argv

@@ -5,8 +5,8 @@ window VI-BA solve on the card against the same solve on the CPU; a few
 frames of Odometry (the synthetic backend) on the card, synchronous, and
 threaded with the device PARSAC, which is also held against the CPU; the
 batched LM solve of the lockstep runtime, its CUDA-graph replay against its
-eager run and its rows against single solves, and a short lockstep run on
-the card. Every
+eager run and its rows against single solves, a short lockstep run on
+the card, and the undistortion's remap against its CPU run. Every
 test is marked `cuda` and skips where there is no CUDA device; this file
 imports no JAX, so on a GPU machine without JAX it runs as
 
@@ -378,3 +378,25 @@ def test_batch_runtime_on_the_card(dev):
     for e in est:
         assert len(e) > 5 and np.isfinite(np.stack([p for _, p in e])).all()
     assert native.CALLS["preintegrate_batch"] > 0
+
+
+@pytest.mark.cuda
+def test_remap_matches_cpu(dev):
+    """The undistortion's remap (ops/image/undistort.remap_bilinear) on the
+    card against its run on the CPU, at EuRoC cam0's 752x480 with its
+    radtan coefficients: equal bit for bit (the blend's fused steps are
+    written out, so neither side contracts them its own way)."""
+    import torch
+
+    from rd_vio_tpu_torch.ops.image.undistort import build_remap, remap_bilinear
+
+    K = np.array([[458.654, 0.0, 367.215], [0.0, 457.296, 248.375], [0.0, 0.0, 1.0]])
+    dist = np.array([-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05])
+    maps = build_remap(K, dist, "radtan", 752, 480)
+    rng = np.random.default_rng(5)
+    img = rng.uniform(0, 255, (480, 752)).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (img, *maps)]
+    cpu = remap_bilinear(*args).numpy()
+    card = remap_bilinear(*(a.to(dev) for a in args))
+    assert card.device.type == "cuda" and card.dtype == torch.float32
+    np.testing.assert_array_equal(card.cpu().numpy(), cpu)

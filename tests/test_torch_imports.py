@@ -1,5 +1,6 @@
-"""rd_vio_tpu_torch (and chip_smoke.py) import neither JAX nor the JAX
-package, and every module imports on a machine with no nvcc and no CUDA;
+"""rd_vio_tpu_torch (and chip_smoke.py, the port's example runners and the
+EuRoC layout writer) import neither JAX nor the JAX package, and every
+module imports on a machine with no nvcc and no CUDA;
 `convert` carries the JAX side's config into the port field by field, and
 the port's checks run in the child process of test_torch_image alone. The
 port's entry points compute on the GPU unless the caller names another
@@ -45,7 +46,10 @@ def _modules():
 
 
 def _check_imports_without_jax():
-    mods = _modules() + ["chip_smoke"]
+    # the port's runners and the layout writer of chip_smoke.py's phase I
+    entry = ["examples.torch_run_synthetic", "examples.torch_run_euroc",
+             "examples.torch_run_advio", "scripts.euroc_layout"]
+    mods = _modules() + ["chip_smoke"] + entry
     assert "rd_vio_tpu_torch.ops.image.klt" in mods
     assert "rd_vio_tpu_torch.estimation.ba" in mods
     assert "rd_vio_tpu_torch.models.handler" in mods
@@ -53,7 +57,9 @@ def _check_imports_without_jax():
               "models.sliding_window_tracker", "models.builders", "ops.homography",
               "ops.parsac_np", "ops.frontend_step_np", "utils.trajectory",
               "ops.parsac", "ops.pnp", "ops.essential5", "native", "batch",
-              "batch.dispatcher", "batch.swt", "batch.runtime", "utils.batch_eval"):
+              "batch.dispatcher", "batch.swt", "batch.runtime", "utils.batch_eval",
+              "ops.camera", "ops.image.undistort", "datasets.euroc", "datasets.advio",
+              "datasets.video", "utils.pose_stream", "utils.viewer"):
         assert f"rd_vio_tpu_torch.{m}" in mods, m
     code = (
         "import sys, importlib\n"
@@ -146,6 +152,20 @@ def _check_entry_points_default_to_the_card():
     assert all(w.is_alive() for w in workers) and odo.healthy()
     odo.close()
     assert not any(w.is_alive() for w in workers)
+    # the dataset layer: the runners' functions and the undistorter
+    from rd_vio_tpu_torch.datasets import advio, euroc
+
+    for fn in (euroc.run_euroc, euroc.make_undistorter, euroc.Undistorter,
+               advio.run_advio, advio.AdvioDataset):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    distorted = dataclasses.replace(cfg, camera_distortion_flag=1)
+    try:
+        euroc.make_undistorter(distorted)
+    except RuntimeError:
+        pass  # no card: the tables' upload fails
+    else:
+        raise AssertionError("an undistorter made on the card without one")
+    assert euroc.make_undistorter(distorted, "cpu").map_x.device.type == "cpu"
     assert Odometry(cfg, on_cpu).device == torch.device("cpu")
     try:
         Odometry(cfg, on_cpu, device="cuda")
