@@ -106,19 +106,41 @@ reverse track and one level of it) from the checkout, then:
      >= 99.9% of pixels). Prints the reader, frames/s over the tracked
      frames, the spans ds.load and ds.undistort per frame, host syncs per
      frame, the remap's max |difference|, the pixels whose integer part
-     differs and its device ms.
+     differs and its device ms;
+  J. the JAX package's last modules, when F ends (see phase_j): J.3 in this
+     process, F's tracker through `utils/checkpoint.save_tracker` and
+     `load_tracker` onto the card (every array bit for bit, the JAX
+     package's keys all present; under G's config the device PARSAC's
+     generator state and the host seed counter carried); then, in a fifth
+     process (`--phase-child J OUT CHECKPOINT`), J.1 phase E's problem
+     solved by `parallel/dist_ba.solve_ba_sharded` over NCCL at world size
+     1 and over J_RANKS (4) gloo ranks on the one card (each rank a
+     process; collectives staged through pinned host buffers), each within
+     1e-6 m of the single-card `solve_ba` of the same relaid problem, with
+     ms per LM iteration beside the single solve's, ms in collectives,
+     bytes all-reduced and host syncs per iteration; J.2 F's window
+     restored twice from the checkpoint, `refine_window` sharded over the
+     4-rank group on one copy against `build_problem` + `solve_ba` (f64) of
+     the same spec on the other, within 1e-6 m, the landmark validation
+     run; J.4 `ops/image/intensity.evaluate_pyramid` at phase A's 384
+     keypoints on every level of the 4-level pyramid, card against CPU
+     within 1e-3, with ms per call. A rank that fails or a collective that
+     times out (J_TIMEOUT_S) fails the phase.
 
 Exits non-zero, with no result line, without a CUDA device or when any
 check fails. Before the last line come an `{"estimator": ...}` line with
 phase E's numbers, an `{"odometry": ...}` line with phase F's, an
 `{"odometry_threaded": ...}` line with phase G's, a `{"batch": ...}` line
-with phase H's, an `{"euroc": ...}` line with phase I's, and the
+with phase H's, an `{"euroc": ...}` line with phase I's, a
+`{"checkpoint": ...}` line with J.3's and a `{"dist": ...}` line with J.1,
+J.2 and J.4's, and the
 `{"kernels": ...}` line with both LK kernels' launch counts (the fused
 kernel's: phases F, G and I, the main path and the runner's, each counted
 from 0 just before it; the level kernel's: phase D), errors, times and
-bounds (the estimator, the batch runtime and the dataset layer add no
-kernel: they are plain PyTorch, as they are XLA in the JAX package, and
-the native libraries are host C++ in both); the last line of stdout
+bounds (the estimator, the batch runtime, the dataset layer, the sharded
+BA and intensity add no kernel: they are plain PyTorch, as they are XLA in
+the JAX package, and the native libraries and the checkpoint are host
+code in both); the last line of stdout
 is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -144,6 +166,7 @@ from rd_vio_tpu_torch.datasets import synthetic
 from rd_vio_tpu_torch.datasets.renderer import SequenceRenderer
 from rd_vio_tpu_torch.datasets.synthetic_problems import build_window_problem, perturbed_start
 from rd_vio_tpu_torch.estimation import ba, marginalization
+from rd_vio_tpu_torch.estimation import factors as F
 from rd_vio_tpu_torch.models import builders
 from rd_vio_tpu_torch.models import sliding_window_tracker as swt_mod
 from rd_vio_tpu_torch.models.feature_tracker import FeatureTracker
@@ -151,9 +174,11 @@ from rd_vio_tpu_torch.models.handler import Handler
 from rd_vio_tpu_torch.models.image_backend import TorchImageBackend
 from rd_vio_tpu_torch.models.odometry import Odometry
 from rd_vio_tpu_torch.ops import lie, parsac, triangulate
-from rd_vio_tpu_torch.ops.image import klt
+from rd_vio_tpu_torch.ops.image import intensity, klt
 from rd_vio_tpu_torch.ops.image import pyramid as pyr_mod
+from rd_vio_tpu_torch.parallel import dist_ba
 from rd_vio_tpu_torch.tools import lk_bench
+from rd_vio_tpu_torch.utils import checkpoint
 from rd_vio_tpu_torch.utils.metrics import GLOBAL_TIMER, DeviceStageTimer
 from rd_vio_tpu_torch.utils.trajectory import ate_rmse
 
@@ -850,7 +875,7 @@ def phase_f(cfg, seq, frames, dev):
     check(n_tail >= 3, f"phase F: only {n_tail} marginalize_tail runs")
     check(ate <= F_ATE_BOUND_M, f"phase F: ATE {ate:.5f} m > {F_ATE_BOUND_M:.5f} m")
     rec["card_vs_cpu"] = keyframe_card_vs_cpu()
-    return rec, launches, wall
+    return rec, launches, wall, swt
 
 
 def keyframe_card_vs_cpu():
@@ -1059,15 +1084,18 @@ class PhaseChild:
     process is killed if it outlives its time limit or the parent fails),
     relays its output and returns its record."""
 
-    def __init__(self, tmp, phase, timeout_s):
+    def __init__(self, tmp, phase, timeout_s, *args):
         self.phase = phase
         self.timeout_s = timeout_s
         self.out = os.path.join(tmp, f"phase_{phase}.json")
         self.log = open(os.path.join(tmp, f"phase_{phase}.log"), "w+")
         self.t0 = time.perf_counter()
+        # a session of its own: stop() ends the processes it starts too
+        # (phase J's ranks)
         self.proc = subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--phase-child", phase, self.out],
-            stdout=self.log, stderr=subprocess.STDOUT)
+            [sys.executable, os.path.abspath(__file__), "--phase-child", phase, self.out,
+             *args],
+            stdout=self.log, stderr=subprocess.STDOUT, start_new_session=True)
 
     def finish(self):
         try:
@@ -1087,18 +1115,23 @@ class PhaseChild:
         return out
 
     def stop(self):
-        if self.proc.poll() is None:
-            self.proc.kill()
-            self.proc.wait()
+        import signal
+
+        try:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        self.proc.wait()
 
 
 G_CHILD_TIMEOUT_S = 900
 H_CHILD_TIMEOUT_S = 1080
 
 
-def phase_child(phase, out_path):
+def phase_child(phase, out_path, *args):
     """The body of a phase's own process: the same setup as main's, then
-    phase G, H or I, its record written to `out_path`."""
+    phase G, H, I or J (J's argument: F's checkpoint), its record written
+    to `out_path`."""
     if not torch.cuda.is_available():
         return 1
     t0 = time.perf_counter()
@@ -1112,6 +1145,8 @@ def phase_child(phase, out_path):
     elif phase == "I":
         rec, launches = phase_i(DEV)
         out = {"record": rec, "launches": launches}
+    elif phase == "J":
+        out = {"record": phase_j(DEV, args[0])}
     else:
         out = {"record": phase_h(DEV)}
     out["wall_s"] = time.perf_counter() - t0
@@ -1724,10 +1759,260 @@ def phase_i(dev):
     return rec, launches
 
 
+# phase J: the JAX package's last modules. J.1 the landmark-sharded window
+# BA (parallel/dist_ba.py) on phase E's problem: NCCL at world size 1 (the
+# backend of a run with a card per rank; NCCL refuses two ranks on one
+# card) and J_RANKS gloo ranks on the one card, each against the single-card
+# solve_ba of the same relaid problem; J.2 the tracker's sharded
+# refine_window on F's window, restored from F's checkpoint; J.3 (in the
+# main process) the checkpoint of F's tracker, round trip on the card; J.4
+# the bicubic intensity on phase A's frame and keypoints, card against CPU
+J_RANKS = 4
+J_DIST_TOL_M = 1e-6  # phase E's card-against-CPU bound on positions
+J_TIMEOUT_S = 120.0  # every collective's
+J_INTENSITY_TOL = 1e-3
+J_CHILD_TIMEOUT_S = 600
+# what the JAX package's save_tracker writes per frame and subframe
+# (rd_vio_tpu/utils/checkpoint.py:25-32)
+J_FRAME_KEYS = ("id", "t", "q", "p", "v", "bg", "ba", "bearings", "track_ids",
+                "imu_dt", "imu_w", "imu_a", "flags")
+
+
+def jax_checkpoint_keys(state, has_prior):
+    """The keys the JAX package's save_tracker writes for the tracker whose
+    state this is (rd_vio_tpu/utils/checkpoint.py:44-75)."""
+    keys = {"n_frames", "n_tracks", "tracks_json", "m_th", "bin_conf_imu",
+            "bin_conf_2d2d", "rng_key", "host_seed_ctr"}
+    for i in range(int(state["n_frames"])):
+        keys |= {f"f{i}_{a}" for a in J_FRAME_KEYS} | {f"f{i}_nsub"}
+        for j in range(int(state[f"f{i}_nsub"])):
+            keys |= {f"f{i}_s{j}_{a}" for a in J_FRAME_KEYS}
+    if has_prior:
+        keys |= {"prior_" + name for name in F.PriorFactor._fields}
+    return keys
+
+
+def same_state(a, b):
+    """Keys of two checkpoint states whose arrays differ (dtype, shape or
+    any bit; object arrays by value)."""
+    bad = []
+    for k in a:
+        x, y = np.asarray(a[k]), np.asarray(b[k])
+        if x.dtype == object or y.dtype == object:
+            ok = x.tolist() == y.tolist()
+        else:
+            ok = x.dtype == y.dtype and x.shape == y.shape and np.array_equal(x, y)
+        if not ok:
+            bad.append(k)
+    return bad
+
+
+def phase_j3(swt, cfg, path):
+    """F's tracker to `path` with save_tracker and back with load_tracker on
+    the card: every array bit for bit; then F's file under G's config (the
+    device PARSAC), its generator advanced, saved and loaded again: the
+    generator's state and the host seed counter carried. Returns the
+    `checkpoint` record."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.save_tracker(path, swt)
+    save_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    restored = checkpoint.load_tracker(path, cfg, swt.calib, swt.caps)
+    torch.cuda.synchronize()
+    load_ms = 1e3 * (time.perf_counter() - t0)
+    size = os.path.getsize(path)
+    live = checkpoint.tracker_state(swt)
+    back = checkpoint.tracker_state(restored)
+    bad = same_state(live, back)
+    n_sub = sum(int(live[f"f{i}_nsub"]) for i in range(int(live["n_frames"])))
+    missing = jax_checkpoint_keys(live, swt.prior is not None) - set(live)
+    on_card = swt.prior is None or restored.prior.sqrt_inv_cov.device == DEV
+    # the device PARSAC's state: a generator on the card and the seed counter
+    cfg_g = dataclasses.replace(cfg, parsac_host_masks=False)
+    a = checkpoint.load_tracker(path, cfg_g, swt.calib, swt.caps)
+    a._gumbel((3, 64, 256))
+    for _ in range(5):
+        a._next_seed()
+    path_g = path + ".device_parsac.npz"
+    checkpoint.save_tracker(path_g, a)
+    b = checkpoint.load_tracker(path_g, cfg_g, swt.calib, swt.caps)
+    gen_same = bool(torch.equal(a.gumbel_source.gen.get_state(),
+                                b.gumbel_source.gen.get_state()))
+    draws_same = bool(torch.equal(a._gumbel((64, 256)), b._gumbel((64, 256))))
+    seeds_same = a._host_seed_ctr == b._host_seed_ctr == int(live["host_seed_ctr"]) + 5
+    conf_on_card = b.bin_conf_imu.device == DEV and b.bin_conf_2d2d.device == DEV
+    rec = {"save_ms": save_ms, "load_ms": load_ms, "file_bytes": size,
+           "frames": int(live["n_frames"]), "subframes": n_sub, "tracks": int(live["n_tracks"]),
+           "arrays": len(live), "arrays_differ": bad, "jax_keys_missing": sorted(missing),
+           "generator_state_equal": gen_same, "next_draws_equal": draws_same,
+           "host_seed_counter_equal": seeds_same}
+    print(f"[J] checkpoint of F's tracker ({rec['frames']} frames, {n_sub} subframes, "
+          f"{rec['tracks']} tracks, prior {swt.prior is not None}): save_tracker "
+          f"{save_ms:.1f} ms, load_tracker on the card {load_ms:.1f} ms, {size} bytes; "
+          f"{len(live)} arrays, {len(bad)} differ; JAX package's keys missing "
+          f"{len(missing)}; device PARSAC generator state equal {gen_same}, next draws "
+          f"equal {draws_same}, host seed counter equal {seeds_same}")
+    check(not bad, f"phase J: the restored tracker differs in {bad[:5]}")
+    check(not missing, f"phase J: the file lacks the JAX package's keys {sorted(missing)[:5]}")
+    check(on_card and conf_on_card, "phase J: a restored tracker's state is not on the card")
+    check(gen_same and draws_same and seeds_same,
+          "phase J: the device PARSAC's random state did not carry")
+    return rec
+
+
+def j_sharded_run(group, s0, invd0, pb, label):
+    """solve_ba_sharded over `group` (this process its rank 0) on phase E's
+    problem relaid for the group, against the single-card solve_ba of the
+    same relaid problem; each timed after a two-iteration warm-up."""
+    n = group.world_size
+    invd_s, pb_s, _ = dist_ba.relayout_for_sharding(invd0, pb, n)
+    dist_ba.solve_on_group(group, s0, invd_s, pb_s, max_iterations=2)
+    ba.solve_ba(s0, invd_s, pb_s, max_iterations=2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (s_d, invd_d, cost_d), syncs = count_syncs(
+        lambda: dist_ba.solve_on_group(group, s0, invd_s, pb_s, max_iterations=E_ITERS))
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    info = dict(group.last_solve)
+    it = info["iterations"]
+    it0 = ba.STATS.iterations
+    t0 = time.perf_counter()
+    ref = ba.solve_ba(s0, invd_s, pb_s, max_iterations=E_ITERS)
+    torch.cuda.synchronize()
+    single_ms = 1e3 * (time.perf_counter() - t0)
+    it_single = ba.STATS.iterations - it0
+    dp = float((s_d.p - ref.states.p).abs().max())
+    finite = all(bool(torch.isfinite(a).all()) for a in (*s_d, invd_d, cost_d))
+    rec = {"backend": group.backend, "world_size": n, "staged_through_host": group.staged,
+           "iterations": it, "accepted": info["accepted"],
+           "rank_iterations": info["rank_iterations"],
+           "single_iterations": it_single, "single_accepted": int(ref.iterations),
+           "ms_per_iteration": wall_ms / it, "single_ms_per_iteration": single_ms / it_single,
+           "collective_ms_per_iteration": info["collective_ms"] / it,
+           "all_reduce_bytes_per_iteration": info["all_reduce_bytes"] / it,
+           "broadcast_bytes_per_iteration": info["broadcast_bytes"] / it,
+           "host_syncs_per_iteration": syncs / it, "max_position_diff_m": dp,
+           "cost": float(cost_d), "single_cost": float(ref.cost)}
+    print(f"[J] solve_ba_sharded, {label}: {it} LM iterations ({info['accepted']} accepted) "
+          f"on every rank {info['rank_iterations']}; single-card solve_ba {it_single} "
+          f"({int(ref.iterations)} accepted); max position difference {dp:.3e} m; ms per "
+          f"iteration {rec['ms_per_iteration']:.2f} (scatter and gather included) against "
+          f"{rec['single_ms_per_iteration']:.2f}; in collectives "
+          f"{rec['collective_ms_per_iteration']:.3f} ms per iteration; all-reduced "
+          f"{rec['all_reduce_bytes_per_iteration']:.0f} bytes per iteration (broadcast "
+          f"{rec['broadcast_bytes_per_iteration']:.0f}); host syncs per iteration "
+          f"{rec['host_syncs_per_iteration']:.1f}; costs {float(cost_d):.6e} vs "
+          f"{float(ref.cost):.6e}")
+    check(finite, f"phase J: non-finite sharded solve ({label})")
+    check(dp <= J_DIST_TOL_M, f"phase J: sharded and single solves differ by {dp:.3e} m "
+          f"({label})")
+    return rec
+
+
+def j_tracker(group, ckpt, cfg, dev):
+    """F's tracker restored twice on the card: refine_window sharded over
+    `group` on one copy, build_problem + solve_ba (f64) of the same window
+    spec on the other."""
+    calib = builders.CalibArrays.from_config(cfg, dev)
+    a = checkpoint.load_tracker(ckpt, cfg, calib, F_CAPS)
+    b = checkpoint.load_tracker(ckpt, cfg, calib, F_CAPS)
+    a.dist_mesh = group
+    validated = []
+    validate = a._validate_landmarks
+    a._validate_landmarks = lambda: validated.append(validate())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, syncs = count_syncs(a.refine_window)
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    info = dict(group.last_solve)
+    frames = list(b.map.frames)
+    spec = b._window_spec(frames, {f.id: f for f in b.map.all_frames()})
+    st, invd, pb, _ = builders.build_problem(spec, b.calib, b.caps)
+    ref = ba.solve_ba(st, invd, pb, max_iterations=cfg.solver_iteration_limit)
+    got = np.stack([f.p for f in a.map.frames])
+    dp = float(np.abs(got - ref.states.p[: len(frames)].cpu().numpy()).max())
+    finite = all(np.isfinite(np.asarray(x)).all() for f in a.map.all_frames()
+                 for x in (f.q, f.p, f.v, f.bg, f.ba))
+    rec = {"window_frames": len(frames), "tracks": len(a.map.tracks),
+           "iterations": info["iterations"], "rank_iterations": info["rank_iterations"],
+           "single_accepted": int(ref.iterations), "refine_window_ms": wall_ms,
+           "host_syncs": syncs, "max_position_diff_m": dp, "validated": len(validated)}
+    print(f"[J] F's window restored from its checkpoint, refine_window sharded over "
+          f"{group.world_size} gloo ranks: {len(frames)} frames, {info['iterations']} LM "
+          f"iterations on every rank {info['rank_iterations']}, {wall_ms:.0f} ms, host syncs "
+          f"{syncs}; against build_problem + solve_ba f64 of the same spec: max position "
+          f"difference {dp:.3e} m; landmark validation ran {len(validated)} time(s)")
+    check(finite, "phase J: a non-finite window state after the sharded refine_window")
+    check(validated == [None], "phase J: the landmark validation did not run")
+    check(dp <= J_DIST_TOL_M, f"phase J: the sharded window differs by {dp:.3e} m")
+    return rec
+
+
+def j_intensity(cfg, frame, dev):
+    """evaluate_pyramid at phase A's keypoints on every level of the frame's
+    4-level pyramid, on the card and on the CPU."""
+    pyr = TorchImageBackend(cfg, dev).preprocess(frame).pyramid
+    pix, corner = lk_bench.main_path_keypoints(pyr, KP_CAP, W_IMG, H_IMG, dev)
+    pyr_c, pix_c = [p.cpu() for p in pyr], pix.cpu()
+    rec = {"keypoints": KP_CAP, "gftt": int(corner.sum()), "levels": {}}
+    for level in range(len(pyr)):
+        (v, g), (vc, gc) = (intensity.evaluate_pyramid(pyr, pix, level),
+                            intensity.evaluate_pyramid(pyr_c, pix_c, level))
+        dv = float((v.cpu() - vc).abs().max())
+        dg = float((g.cpu() - gc).abs().max())
+        dev_ms, host_ms = time_call(lambda: intensity.evaluate_pyramid(pyr, pix, level), 20)
+        rec["levels"][level] = {"value_max_diff": dv, "gradient_max_diff": dg,
+                                "device_ms": dev_ms, "host_ms": host_ms}
+        print(f"[J] evaluate_pyramid level {level} at {KP_CAP} keypoints: card against CPU "
+              f"values within {dv:.3e}, gradients within {dg:.3e}; device ms per call "
+              f"{dev_ms:.4f}, ms per call with the host {host_ms:.4f}")
+        check(dv <= J_INTENSITY_TOL and dg <= J_INTENSITY_TOL and bool(torch.isfinite(v).all()),
+              f"phase J: evaluate_pyramid level {level}, card against CPU")
+    return rec
+
+
+def phase_j(dev, ckpt):
+    """J.1, J.2 and J.4 (see above) in their own process; J.2 reads F's
+    checkpoint `ckpt`. Returns the `dist` record."""
+    seq, rend, frames = render(1)
+    cfg = make_config(rend.K)
+    gt, invd_gt, pb, n_lm, n_obs = build_window_problem(
+        seq, f0=10, W=E_W, L_max=E_L, O_max=E_O, device=dev)
+    s0, invd0, pb = perturbed_start(gt, invd_gt, pb)
+    print(f"[J] phase E's problem W={E_W} L={E_L} O={E_O}: {n_lm} tracks, {n_obs} "
+          f"observations, f64; collectives time out after {J_TIMEOUT_S:.0f} s")
+    rec = {"problem": {"W": E_W, "L": E_L, "O": E_O, "tracks": n_lm, "observations": n_obs}}
+    group = dist_ba.make_group(0, 1, "nccl", dist_ba.local_init_method(), device=dev,
+                               timeout_s=J_TIMEOUT_S)
+    try:
+        rec["nccl_1"] = j_sharded_run(group, s0, invd0, pb, "nccl, world size 1")
+    finally:
+        dist_ba.close_group()
+    init = dist_ba.local_init_method()
+    ranks = dist_ba.RankProcesses(J_RANKS, "gloo", init, device=dev, timeout_s=J_TIMEOUT_S)
+    try:
+        group = dist_ba.make_group(0, J_RANKS, "gloo", init, device=dev, timeout_s=J_TIMEOUT_S)
+        label = (f"gloo, {J_RANKS} ranks on the one card, staged through pinned host "
+                 f"buffers" if group.staged else f"gloo, {J_RANKS} ranks")
+        rec[f"gloo_{J_RANKS}"] = j_sharded_run(group, s0, invd0, pb, label)
+        rec["tracker"] = j_tracker(group, ckpt, cfg, dev)
+        dist_ba.stop_serving(group)
+    finally:
+        dist_ba.close_group()
+        exits = ranks.wait(60.0)
+    for r, (rc, text) in enumerate(exits, start=1):
+        print(f"[J] rank {r} exited {rc}: {text.strip().splitlines()[-1:] }")
+    check(all(rc == 0 for rc, _ in exits), "phase J: a serving rank failed")
+    rec["intensity"] = j_intensity(cfg, frames[0], dev)
+    return rec
+
+
 def main(argv):
-    if "--phase-child" in argv:  # phase G's, H's or I's own process (PhaseChild)
+    if "--phase-child" in argv:  # phase G's, H's, I's or J's own process (PhaseChild)
         i = argv.index("--phase-child")
-        return phase_child(argv[i + 1], argv[i + 2])
+        return phase_child(*argv[i + 1:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
@@ -1749,13 +2034,17 @@ def main(argv):
         # with A-G
         child_h = PhaseChild(tmp, "H", H_CHILD_TIMEOUT_S)
         child_i = PhaseChild(tmp, "I", I_CHILD_TIMEOUT_S)
+        child_j = None
         try:
-            records, fused, level = run_a_to_g(dev, tmp, native)
+            records, fused, level, child_j = run_a_to_g(dev, tmp, native)
             records["batch"] = child_h.finish()["record"]
             out_i = child_i.finish()
+            records["dist"] = child_j.finish()["record"]
         finally:
             child_h.stop()
             child_i.stop()
+            if child_j is not None:
+                child_j.stop()
     compare_h_with_f(records["batch"], records["odometry"])
     records["euroc"] = out_i["record"]
     # phase I's launches, counted from 0 in its process just before its run
@@ -1806,12 +2095,23 @@ def run_a_to_g(dev, tmp, native):
     records = {"estimator": phase_e(seq, dev)}
     lap("E")
     child = PhaseChild(tmp, "G", G_CHILD_TIMEOUT_S)  # phase G, at once with F
+    child_j = None
     try:
         native.CALLS.clear()
-        records["odometry"], launches_f, wall_f = phase_f(cfg, seq, frames, dev)
+        records["odometry"], launches_f, wall_f, swt_f = phase_f(cfg, seq, frames, dev)
         records["odometry"]["native_calls"] = dict(native.CALLS)
         lap("F")
+        # phase J: F's tracker to a checkpoint (J.3 here), then J.1, J.2 and
+        # J.4 in a process of their own, collected at the end
+        ckpt = os.path.join(tmp, "f_tracker.npz")
+        records["checkpoint"] = phase_j3(swt_f, cfg, ckpt)
+        lap("J.3")
+        child_j = PhaseChild(tmp, "J", J_CHILD_TIMEOUT_S, ckpt)
         out_g = child.finish()
+    except BaseException:
+        if child_j is not None:
+            child_j.stop()
+        raise
     finally:
         child.stop()
     records["odometry_threaded"], launches_g = out_g["record"], out_g["launches"]
@@ -1825,7 +2125,7 @@ def run_a_to_g(dev, tmp, native):
     # before it ran
     fused["launches_by_phase"] = {"F": launches_f, "G": launches_g}
     fused["launches"] = launches_f + launches_g
-    return records, fused, level
+    return records, fused, level, child_j
 
 
 def compare_h_with_f(h_rec, f_rec):

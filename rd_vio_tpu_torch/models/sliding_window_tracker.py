@@ -8,9 +8,11 @@ Behavioral reference: the reference's src/rdvio/src/sliding_window_tracker.cpp
 refine_window :226-337, slide_window :339-347, refine_subwindow :349-444,
 judge_track_status :557-718, update_track_status :720-769).
 
-Port of the JAX package's models/sliding_window_tracker.py: no sharded BA
-(`dist_mesh`) and the synchronous keyframe step only
-(`sliding_window_keyframe_async=False`). PARSAC runs as the NumPy twins
+Port of the JAX package's models/sliding_window_tracker.py, with the
+synchronous keyframe step only (`sliding_window_keyframe_async=False`). With
+`dist_mesh` set to a group of parallel/dist_ba.py (this process its rank 0),
+the keyframe step takes the unfused path and `refine_window` solves the
+window sharded over the group's ranks. PARSAC runs as the NumPy twins
 (`parsac_host_masks=True`, host seeds) or as the device programs of
 ops/parsac.py (`parsac_host_masks=False`): the IMU-PARSAC judge and the
 chained 2D-2D keyframe check, each fed Gumbel noise from `noise`, with the
@@ -100,6 +102,9 @@ class SlidingWindowTracker:
             getattr(config, "window_solver_dtype", "float64")
         )
         self.feature_tracking_map: Optional[Map] = None
+        # set to a parallel.dist_ba.ShardGroup (this process its rank 0, the
+        # other ranks in dist_ba.serve) for the landmark-sharded window BA
+        self.dist_mesh = None
         self.prior: Optional[F.PriorFactor] = None
         # prior produced by the fused keyframe-tail program, consumed by the
         # matching slide_window() call
@@ -121,11 +126,17 @@ class SlidingWindowTracker:
         # refreshes the host mirror exactly)
         self._dev_sub = None
         self.m_th = 3.0  # adaptive epipolar threshold (px)
+        self.gumbel_source = None
         if not config.parsac_host_masks:
             # the confidences stay on the device between frames
             self.bin_conf_imu = parsac.default_bin_confidences(calib.device)
             self.bin_conf_2d2d = parsac.default_bin_confidences(calib.device)
-            self._noise = noise or GumbelSource(config.random, calib.device).draw
+            if noise is None:
+                # its generator state is what a checkpoint saves
+                # (utils/checkpoint.py); a caller's `noise` is not saved
+                self.gumbel_source = GumbelSource(config.random, calib.device)
+                noise = self.gumbel_source.draw
+            self._noise = noise
         else:
             self.bin_conf_imu = parsac_np.default_bin_confidences_np()
             self.bin_conf_2d2d = parsac_np.default_bin_confidences_np()
@@ -269,7 +280,8 @@ class SlidingWindowTracker:
                 raise RuntimeError(
                     "keyframe decision disagreed with manage_keyframe"
                 )
-            if m.frame_num > self.config.sliding_window_size:
+            if (self.dist_mesh is None
+                    and m.frame_num > self.config.sliding_window_size):
                 # steady state: the ENTIRE keyframe step (localize +
                 # triangulate + window BA + validation + marginalization)
                 # chained on the device with one fetch. A truthy return
@@ -573,17 +585,40 @@ class SlidingWindowTracker:
         frames = list(m.frames)
         frames_by_id = {f.id: f for f in m.all_frames()}
         spec = self._window_spec(frames, frames_by_id)
-        if m.frame_num > self.config.sliding_window_size:
+        if self.dist_mesh is None and m.frame_num > self.config.sliding_window_size:
             # the window will slide right after this solve: run the whole
             # keyframe tail (solve + validation + marginalization) chained on
             # the device, one fetch, the prior stays on the device
             self._refine_window_fused_tail(spec, frames, frames_by_id)
             return
-        res, lm_slot = builders.solve_spec(
-            spec, self.calib, self.caps, dtype=self._window_dtype,
-            max_iterations=self.config.solver_iteration_limit,
-        )
-        builders.apply_result(res, spec, lm_slot)
+        if self.dist_mesh is not None:
+            # landmark-sharded distributed Schur BA (parallel/dist_ba.py), in
+            # build_problem's f64 as in the JAX package
+            from rd_vio_tpu_torch.parallel import dist_ba
+
+            states, invd, pb, lm_slot = builders.build_problem(spec, self.calib, self.caps)
+            invd_s, pb_s, new_slot = dist_ba.relayout_for_sharding(
+                invd, pb, self.dist_mesh.world_size)
+            s_out, invd_out, _cost = dist_ba.solve_on_group(
+                self.dist_mesh, states, invd_s, pb_s,
+                max_iterations=self.config.solver_iteration_limit,
+            )
+            q, p, v, bg, ba_arr, invd_h = fetch(
+                (s_out.q, s_out.p, s_out.v, s_out.bg, s_out.ba, invd_out)
+            )
+            for i, f in enumerate(spec.frames):
+                f.q, f.p, f.v, f.bg, f.ba = q[i], p[i], v[i], bg[i], ba_arr[i]
+            by_id = {t.id: t for t in spec.opt_tracks}
+            for tid, old in lm_slot.items():
+                t = by_id.get(tid)
+                if t is not None:
+                    t.inv_depth = float(invd_h[new_slot[old]])
+        else:
+            res, lm_slot = builders.solve_spec(
+                spec, self.calib, self.caps, dtype=self._window_dtype,
+                max_iterations=self.config.solver_iteration_limit,
+            )
+            builders.apply_result(res, spec, lm_slot)
 
         # post-solve landmark validation (reference :304-336)
         self._validate_landmarks()

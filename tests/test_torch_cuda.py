@@ -6,7 +6,9 @@ frames of Odometry (the synthetic backend) on the card, synchronous, and
 threaded with the device PARSAC, which is also held against the CPU; the
 batched LM solve of the lockstep runtime, its CUDA-graph replay against its
 eager run and its rows against single solves, a short lockstep run on
-the card, and the undistortion's remap against its CPU run. Every
+the card, and the undistortion's remap against its CPU run; the
+landmark-sharded solve over NCCL and over gloo ranks on the card, and a
+tracker checkpoint's round trip on the card with bicubic intensity. Every
 test is marked `cuda` and skips where there is no CUDA device; this file
 imports no JAX, so on a GPU machine without JAX it runs as
 
@@ -400,3 +402,101 @@ def test_remap_matches_cpu(dev):
     card = remap_bilinear(*(a.to(dev) for a in args))
     assert card.device.type == "cuda" and card.dtype == torch.float32
     np.testing.assert_array_equal(card.cpu().numpy(), cpu)
+
+
+@pytest.mark.cuda
+def test_sharded_solve_on_the_card(dev):
+    """The landmark-sharded solve (parallel/dist_ba.py) of the entry
+    point's window on the card: over NCCL at world size 1, and over 2 gloo
+    ranks on the one card (collectives staged through pinned host
+    buffers), each within 1e-6 m of the single-card solve_ba of the same
+    relaid problem, every rank on the same LM iterations."""
+    import torch
+
+    from rd_vio_tpu_torch.datasets import synthetic
+    from rd_vio_tpu_torch.datasets.synthetic_problems import (
+        build_window_problem, perturbed_start)
+    from rd_vio_tpu_torch.estimation import ba
+    from rd_vio_tpu_torch.parallel import dist_ba
+
+    seq = synthetic.generate(duration=4.0, n_landmarks=300, max_keypoints=40)
+    gt, invd, pb, _, _ = build_window_problem(seq, f0=10, W=6, L_max=64, O_max=256,
+                                              device=dev)
+    s0, invd0, pb = perturbed_start(gt, invd, pb)
+    for backend, n in (("nccl", 1), ("gloo", 2)):
+        invd_s, pb_s, _ = dist_ba.relayout_for_sharding(invd0, pb, n)
+        init = dist_ba.local_init_method()
+        ranks = dist_ba.RankProcesses(n, backend, init, device=dev, timeout_s=60.0)
+        try:
+            group = dist_ba.make_group(0, n, backend, init, device=dev, timeout_s=60.0)
+            assert group.staged == (backend == "gloo")
+            s, invd_d, _ = dist_ba.solve_on_group(group, s0, invd_s, pb_s, max_iterations=30)
+            its = group.last_solve["rank_iterations"]
+            dist_ba.stop_serving(group)
+        finally:
+            dist_ba.close_group()
+            exits = ranks.wait(60.0)
+        assert all(rc == 0 for rc, _ in exits), exits
+        assert its == [its[0]] * n
+        ref = ba.solve_ba(s0, invd_s, pb_s, max_iterations=30)
+        assert s.p.device.type == "cuda" and bool(torch.isfinite(invd_d).all())
+        assert float((s.p - ref.states.p).abs().max()) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_on_the_card(dev, tmp_path):
+    """A few frames of Odometry on the card (the synthetic backend, the
+    device PARSAC), its tracker saved and loaded back onto the card: every
+    array of the two trackers' states equal, the generator's state
+    included; and bicubic intensity on the card against the CPU."""
+    import torch
+
+    from rd_vio_tpu_torch.config import Config
+    from rd_vio_tpu_torch.datasets import synthetic
+    from rd_vio_tpu_torch.models import builders
+    from rd_vio_tpu_torch.models.feature_tracker import SyntheticBackend
+    from rd_vio_tpu_torch.models.odometry import Odometry
+    from rd_vio_tpu_torch.ops.image import intensity
+    from rd_vio_tpu_torch.utils import checkpoint
+
+    seq = synthetic.generate(duration=1.6, n_landmarks=1200, max_keypoints=150, seed=648)
+    cfg = Config()
+    cfg.camera_intrinsic = seq.K_mat
+    cfg.sliding_window_size = 4
+    cfg.initializer_keyframe_num = 4
+    cfg.initializer_keyframe_gap = 4
+    cfg.parsac_host_masks = False
+    odo = Odometry(cfg, SyntheticBackend(seq),
+                   caps=builders.Caps(W=13, L=256, O=1536, Fi=16, R=128, IMU=64, IMU_KF=384))
+    events = sorted([(t, 1, i) for i, t in enumerate(seq.t_imu)]
+                    + [(t, 0, i) for i, t in enumerate(seq.t_frame)])
+    for t, kind, i in events:
+        if kind == 1:
+            odo.add_motion(t, seq.gyro[i], seq.accel[i])
+        else:
+            odo.add_frame(t, i)
+        swt = odo.frontend.swt
+        if kind == 0 and swt is not None and swt.prior is not None:
+            break
+    path = str(tmp_path / "ckpt.npz")
+    checkpoint.save_tracker(path, swt)
+    back = checkpoint.load_tracker(path, cfg, swt.calib, swt.caps)
+    assert back.prior.sqrt_inv_cov.device.type == "cuda"
+    assert back.bin_conf_imu.device.type == "cuda"
+    a, b = checkpoint.tracker_state(swt), checkpoint.tracker_state(back)
+    assert set(a) == set(b) and "torch_gumbel_state" in a
+    for k in a:
+        x, y = np.asarray(a[k]), np.asarray(b[k])
+        if x.dtype == object:
+            assert x.tolist() == y.tolist(), k
+        else:
+            np.testing.assert_array_equal(x, y, err_msg=k)
+
+    rng = np.random.default_rng(648)
+    img = rng.uniform(0, 255, (120, 160)).astype(np.float32)
+    pts = np.stack([rng.uniform(-2, 162, 200), rng.uniform(-2, 122, 200)], -1)
+    vc, gc = intensity.evaluate_bicubic(torch.from_numpy(img), pts)
+    vd, gd = intensity.evaluate_bicubic(torch.from_numpy(img).to(dev), pts)
+    assert vd.device.type == "cuda"
+    assert float((vd.cpu() - vc).abs().max()) <= 1e-3
+    assert float((gd.cpu() - gc).abs().max()) <= 1e-3

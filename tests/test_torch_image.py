@@ -67,11 +67,13 @@ CHILD_TIMEOUT_S = 600
 def _spawned(env=None):
     """A spawned one-process pool and call(fn, *args) into it; `env` is set
     in the environment the process starts with (it starts at the first
-    call)."""
+    call). call.submit(fn, *args) starts the call and returns a function
+    that waits for its result (with the same time limit), so that the
+    caller can do other work meanwhile."""
     ctx = multiprocessing.get_context("spawn")
     pool = ProcessPoolExecutor(max_workers=1, mp_context=ctx)
 
-    def call(fn, *args):
+    def submit(fn, *args):
         saved = {k: os.environ.get(k) for k in env or {}}
         os.environ.update(env or {})
         try:
@@ -82,13 +84,21 @@ def _spawned(env=None):
                     del os.environ[k]
                 else:
                     os.environ[k] = v
-        try:
-            return fut.result(timeout=CHILD_TIMEOUT_S)
-        except TimeoutError:
-            for proc in list(pool._processes.values()):
-                proc.kill()
-            raise
 
+        def result():
+            try:
+                return fut.result(timeout=CHILD_TIMEOUT_S)
+            except TimeoutError:
+                for proc in list(pool._processes.values()):
+                    proc.kill()
+                raise
+
+        return result
+
+    def call(fn, *args):
+        return submit(fn, *args)()
+
+    call.submit = submit
     return pool, call
 
 

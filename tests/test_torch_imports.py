@@ -59,7 +59,8 @@ def _check_imports_without_jax():
               "ops.parsac", "ops.pnp", "ops.essential5", "native", "batch",
               "batch.dispatcher", "batch.swt", "batch.runtime", "utils.batch_eval",
               "ops.camera", "ops.image.undistort", "datasets.euroc", "datasets.advio",
-              "datasets.video", "utils.pose_stream", "utils.viewer"):
+              "datasets.video", "utils.pose_stream", "utils.viewer", "parallel",
+              "parallel.dist_ba", "utils.checkpoint", "ops.image.intensity"):
         assert f"rd_vio_tpu_torch.{m}" in mods, m
     code = (
         "import sys, importlib\n"
@@ -166,6 +167,19 @@ def _check_entry_points_default_to_the_card():
     else:
         raise AssertionError("an undistorter made on the card without one")
     assert euroc.make_undistorter(distorted, "cpu").map_x.device.type == "cpu"
+    # the sharded BA's groups and serving ranks: the card unless the caller
+    # names another device (gloo on the CPU, as the tests run them); the
+    # checkpoint restores onto the calibration's device (the card by
+    # default); intensity computes where its image lies
+    from rd_vio_tpu_torch.ops.image import intensity
+    from rd_vio_tpu_torch.parallel import dist_ba
+    from rd_vio_tpu_torch.utils import checkpoint
+
+    for fn in (dist_ba.make_group, dist_ba.RankProcesses):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    assert "device" not in inspect.signature(checkpoint.load_tracker).parameters
+    v, g = intensity.evaluate_bicubic(torch.zeros(8, 8), np.array([[3.5, 4.25]]))
+    assert v.device.type == g.device.type == "cpu" and v.dtype == torch.float32
     assert Odometry(cfg, on_cpu).device == torch.device("cpu")
     try:
         Odometry(cfg, on_cpu, device="cuda")

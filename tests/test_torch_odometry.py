@@ -4,8 +4,8 @@ synthetic backend on the CPU, synchronous and threaded.
 The JAX package's Odometry runs in a spawned process that keeps the
 persistent compilation cache (`jax_side`, tests/test_torch_image.py; with
 tests/test_e2e_synthetic.py's Caps and profile, so it runs that test's
-programs), and the port's in the spawned child, over the same short `synthetic.generate` sequence with the same
-config: a window of 4 keyframes (so the window slides and marginalizes from
+programs), and the port's in the spawned child at the same time, over the
+same short `synthetic.generate` sequence with the same config: a window of 4 keyframes (so the window slides and marginalizes from
 the first keyframe after the initialization on) and PARSAC on. Everything
 random is shared: the feature tracker's mask RANSAC and PARSAC draw from the
 same host seeds in both packages, and the port's Initializer is fed the
@@ -109,15 +109,22 @@ def _seq():
                             seed=648)
 
 
-def _check_port(cfg_j, want):
+def _port_run():
+    """The port's synchronous run over the JAX run's sequence and config
+    (make_config)."""
+    seq = _seq()
+    cfg = convert.config_from(make_config(seq.K_mat))
+    odo = OdometryT(cfg, SyntheticBackendT(seq), caps=builders_t.Caps(**CAPS), device="cpu",
+                    init_noise=lambda: JaxKeyNoise(cfg.random))
+    return run(odo, seq, builders_t)
+
+
+def _check_port(port, cfg_j, want):
     """The same initialization frame within 2, the same count of tracked
     frames within 2, the fused keyframe step reached, finite estimates, and
     the ATEs within ATE_DIFF_M of each other and both under ATE_BOUND_M."""
     seq = _seq()
-    cfg = convert.config_from(cfg_j)
-    odo = OdometryT(cfg, SyntheticBackendT(seq), caps=builders_t.Caps(**CAPS), device="cpu",
-                    init_noise=lambda: JaxKeyNoise(cfg.random))
-    states, est_t, est_p, n_kf = run(odo, seq, builders_t)
+    states, est_t, est_p, n_kf = port
     assert 1 in states, "the port never initialized"
     init = states.index(1)
     assert abs(init - want["init"]) <= 2, (init, want["init"])
@@ -140,7 +147,8 @@ def _jax_run():
 
 
 def test_odometry_matches_jax(child, jax_side):
-    child(_check_port, *jax_side(_jax_run))
+    want = jax_side.submit(_jax_run)  # the JAX run goes on while the port's runs
+    child(_check_port, child(_port_run), *want())
 
 
 def _jax_run_device_parsac():
@@ -157,14 +165,14 @@ def _jax_run_device_parsac():
     return cfg, dict(first=first, tracked=len(est_p), ate=_ate(seq, est_t, est_p, ate_rmse_j))
 
 
-def _check_port_threaded(cfg_j, want):
-    """Threaded, device PARSAC: the first tracked frame within
-    THREADED_INIT_FRAMES of JAX's, every later frame estimated (after
-    join() the latest state is the last frame's), the ATEs within
-    THREADED_ATE_DIFF_M of each other and both under ATE_BOUND_M."""
+def _port_run_threaded():
+    """The port's threaded run with the device PARSAC: the published
+    (t, p), once no worker failed, the latest state is the last frame's,
+    the device judge ran and both worker threads exited on close()."""
     seq = _seq()
+    cfg_j = make_config(seq.K_mat)
+    cfg_j.parsac_host_masks = False
     cfg = convert.config_from(cfg_j)
-    assert not cfg.parsac_host_masks
     odo = OdometryT(cfg, SyntheticBackendT(seq), caps=builders_t.Caps(**CAPS), device="cpu",
                     threaded=True, init_noise=lambda: JaxKeyNoise(cfg.random),
                     swt_noise=lambda: JaxSwtNoise(cfg.random))
@@ -187,6 +195,16 @@ def _check_port_threaded(cfg_j, want):
     finally:
         odo.close()
     assert swt_t.PARSAC_STATS["judge"] > judged, "the device judge never ran"
+    assert not odo.handler._ft_worker.is_alive() and not odo.handler._fe_worker.is_alive()
+    return published
+
+
+def _check_port_threaded(published, cfg_j, want):
+    """Threaded, device PARSAC: the first tracked frame within
+    THREADED_INIT_FRAMES of JAX's, every later frame estimated, the ATEs
+    within THREADED_ATE_DIFF_M of each other and both under ATE_BOUND_M."""
+    seq = _seq()
+    assert not cfg_j.parsac_host_masks
     assert published, "the port never initialized"
     est_t = np.array([t for t, _ in published])
     first = int(np.flatnonzero(np.isclose(seq.t_frame, est_t[0]))[0])
@@ -197,11 +215,11 @@ def _check_port_threaded(cfg_j, want):
     ate = _ate(seq, est_t, est_p, ate_rmse)
     assert ate < ATE_BOUND_M and want["ate"] < ATE_BOUND_M, (ate, want["ate"])
     assert abs(ate - want["ate"]) <= THREADED_ATE_DIFF_M, (ate, want["ate"])
-    assert not odo.handler._ft_worker.is_alive() and not odo.handler._fe_worker.is_alive()
 
 
 def test_threaded_device_parsac_matches_jax(child, jax_side):
-    child(_check_port_threaded, *jax_side(_jax_run_device_parsac))
+    want = jax_side.submit(_jax_run_device_parsac)
+    child(_check_port_threaded, child(_port_run_threaded), *want())
 
 
 def _check_worker_failure():
