@@ -86,7 +86,7 @@ class BatchSWT(SlidingWindowTracker):
         fut = self.disp.submit_sub(self.i, pa_loc, pa_sub, j_slot, loc_ip_prev, sub_prev)
         self._dev_sub = (BATCHED, {f.id: k for k, f in enumerate(spec.frames)})
         self._pending_subs.append(
-            (fut, lambda tree: builders.apply_result_np(tree, spec, lm_slot)))
+            (fut, lambda tree: builders.apply_result_np(tree, spec, lm_slot), False))
 
     # -- keyframe path -------------------------------------------------------
     def _keyframe_fused(self, spec_loc, frame_j):

@@ -1214,6 +1214,7 @@ def _keyframe_window_head(loc_states, b, qcw, pcw, m_tri, us, tri_aqc, tri_apc,
 def fused_keyframe(
     pa_loc, b, qcw, pcw, m_tri, us, tri_aqc, tri_apc,
     pa_w, j_w, wlm_tri, prior, va, calib, max_iterations, rows=False,
+    prev=None, loc_ip_prev=None,
 ):
     """The sliding-keyframe step (reference track() keyframe branch
     :80-99): localization solve -> triangulation of pending tracks ->
@@ -1224,11 +1225,23 @@ def fused_keyframe(
     j_w is an int or a tensor; negative: the solved frame is not in the
     window. rows=True runs N steps at once (the lockstep runtime's batched
     program, the JAX dispatcher's `_batched_kf_jit`): every argument but
-    `calib` and `max_iterations` has a leading row axis and is a tensor."""
+    `calib` and `max_iterations` has a leading row axis and is a tensor.
+
+    With `prev` (the previous subwindow solve's FrameStates on the device)
+    and `loc_ip_prev` (the slot of it that anchors the localize problem's
+    preintegration prior, -1: none), the anchor chains device to device
+    (`_chain_localize_head`, as the subframe chain does), so the step needs
+    no exact host mirror when it is dispatched (the async keyframe step, the
+    JAX package's `_fused_keyframe_chain_jit`)."""
     lift, solve = _per_row(rows)
     # --- 1. localize the new frame -------------------------------------
-    s_loc, invd_loc, pb_loc = lift(
-        lambda pl: _finalize_problem(pl, calib, None, False))(pa_loc)
+    if prev is None:
+        s_loc, invd_loc, pb_loc = lift(
+            lambda pl: _finalize_problem(pl, calib, None, False))(pa_loc)
+    else:
+        s_loc, invd_loc, pb_loc = lift(
+            lambda pl, pv, lip: _chain_localize_head(pl, pv, lip, calib))(
+                pa_loc, prev, loc_ip_prev)
     res_loc = solve(s_loc, invd_loc, pb_loc, max_iterations=max_iterations)
 
     # --- 2-3. triangulation, window solve --------------------------------
@@ -1305,20 +1318,23 @@ def assemble_keyframe_fused(
     return arrays, lm_w
 
 
-def run_keyframe_fused(a: dict, prior, calib: CalibTree, max_iterations: int):
+def run_keyframe_fused(a: dict, prior, calib: CalibTree, max_iterations: int,
+                       prev=None, loc_ip_prev: int = -1, name: str = "fused_keyframe"):
     """The device half of `solve_keyframe_fused` on the arrays of
-    `assemble_keyframe_fused` (uploaded here): `fused_keyframe`, then
-    `marginalize_tail`. Returns (res, res_loc, valid_out, tri_ok, tri_invd,
-    new_prior)."""
+    `assemble_keyframe_fused` (uploaded here): `fused_keyframe` (its
+    localize anchor chained from `prev` when given), counted under `name`,
+    then `marginalize_tail`. Returns (res, res_loc, valid_out, tri_ok,
+    tri_invd, new_prior)."""
     dev = _dev_of(calib)
     up = {k: _up(a[k], dev) for k in ("b", "qcw", "pcw", "m_tri", "us", "tri_aqc",
                                         "tri_apc", "wlm_tri", "va", "mlm_vti",
                                         "mlm_from_w", "mlm_tri")}
+    chain = {} if prev is None else dict(prev=prev, loc_ip_prev=int(loc_ip_prev))
     res, res_loc, valid_out, tri_ok, tri_invd = _count(
-        "fused_keyframe", fused_keyframe,
+        name, fused_keyframe,
         a["pa_loc"], up["b"], up["qcw"], up["pcw"], up["m_tri"], up["us"],
         up["tri_aqc"], up["tri_apc"], a["pa_w"], int(a["j_w"]), up["wlm_tri"],
-        prior, up["va"], calib, max_iterations,
+        prior, up["va"], calib, max_iterations, **chain,
     )
     new_prior = _count(
         "marginalize_tail", marginalize_tail,
@@ -1329,9 +1345,10 @@ def run_keyframe_fused(a: dict, prior, calib: CalibTree, max_iterations: int):
 
 
 # while CAPTURE_KEYFRAME is set, the first solve_keyframe_fused call keeps
-# its inputs (arrays, prior, calib tree, max_iterations) and its outputs
-# (run_keyframe_fused's) here, for a caller that replays that keyframe step
-# on another device
+# its inputs (arrays, prior, calib tree, max_iterations, prev_states,
+# loc_ip_prev) and its outputs (run_keyframe_fused's) here, for a caller
+# that replays that keyframe step on another device; with CAPTURE_KEYFRAME
+# == "chained", the first call that chains from prev_states (the async step)
 CAPTURE_KEYFRAME = False
 CAPTURED_KEYFRAME = None
 
@@ -1342,10 +1359,13 @@ def solve_keyframe_fused(
     frames_by_id: Dict[int, Frame], calib: CalibArrays, caps: Caps,
     caps_loc: Optional[Caps] = None, dtype=None, loc_dtype=None,
     max_iterations: int = 10,
+    prev_states: Optional[FrameStates] = None, loc_ip_prev: int = -1,
 ):
     """Fully fused sliding-keyframe step: localize + triangulate + window
     solve + validation, then the marginalization, with one fetch by the
-    caller.
+    caller. With `prev_states` the localize prior's anchor chains device to
+    device from them (the previous subwindow solve, slot `loc_ip_prev`),
+    counted in PROGRAM_STATS as "fused_keyframe_async".
 
     spec_w must already include `pending` tracks (their factors are gated
     on the device by triangulation success). Returns
@@ -1358,11 +1378,38 @@ def solve_keyframe_fused(
         spec_loc, pending, spec_w, tracks_v, spec_m, frames_by_id, calib,
         caps, caps_loc=caps_loc, dtype=dtype, loc_dtype=loc_dtype,
     )
-    out = run_keyframe_fused(a, spec_w.prior, calib.tree, max_iterations)
-    if CAPTURE_KEYFRAME and CAPTURED_KEYFRAME is None:
-        CAPTURED_KEYFRAME = ((a, spec_w.prior, calib.tree, max_iterations), out)
+    name = "fused_keyframe" if prev_states is None else "fused_keyframe_async"
+    out = run_keyframe_fused(a, spec_w.prior, calib.tree, max_iterations, prev=prev_states,
+                             loc_ip_prev=loc_ip_prev, name=name)
+    if (CAPTURE_KEYFRAME and CAPTURED_KEYFRAME is None
+            and (CAPTURE_KEYFRAME != "chained" or prev_states is not None)):
+        CAPTURED_KEYFRAME = (
+            (a, spec_w.prior, calib.tree, max_iterations, prev_states, loc_ip_prev), out)
     res, res_loc, valid_out, tri_ok, tri_invd, new_prior = out
     return res, res_loc, lm_w, valid_out, tri_ok, tri_invd, new_prior
+
+
+def keyframe_transfer_tree(res: ba.BAResult, res_loc: ba.BAResult, valid_out, tri_ok,
+                           tri_invd):
+    """The 14 device tensors the keyframe step's host apply reads, in the
+    order the synchronous fetch reads them: the window states and inverse
+    depths, the localize states, the validation verdicts and the
+    triangulation outcome."""
+    s, sl = res.states, res_loc.states
+    return (s.q, s.p, s.v, s.bg, s.ba, res.inv_depth,
+            sl.q, sl.p, sl.v, sl.bg, sl.ba, valid_out, tri_ok, tri_invd)
+
+
+def solve_keyframe_fused_async(*args, prev_states: FrameStates, loc_ip_prev: int, **kw):
+    """The async fused keyframe step (the JAX package's name): one dispatch
+    of `solve_keyframe_fused` chained from `prev_states`, with no blocking
+    fetch. Returns (res, lm_w, transfer, new_prior): res.states stay on the
+    device for the next frame's chain, `transfer` is the tuple for
+    `utils/host.fetch_async` (`keyframe_transfer_tree`, what the
+    synchronous step fetches), and the new prior never leaves the device."""
+    res, res_loc, lm_w, valid_out, tri_ok, tri_invd, new_prior = solve_keyframe_fused(
+        *args, prev_states=prev_states, loc_ip_prev=loc_ip_prev, **kw)
+    return res, lm_w, keyframe_transfer_tree(res, res_loc, valid_out, tri_ok, tri_invd), new_prior
 
 
 def solve_window_validate_marginalize(

@@ -70,8 +70,9 @@ class Odometry:
     def join(self):
         """Finish every ingested frame: wait for both workers (threaded),
         finalize the frames the device-loop tracker still holds in flight
-        and wait again, then apply any deferred subwindow result so final
-        state reads see the last solve. Re-raises a worker's first error as
+        and wait again, then apply any deferred result (a subwindow solve's,
+        or an async keyframe step's with its window slide) so final state
+        reads see the last solve. Re-raises a worker's first error as
         a RuntimeError chained from it."""
         self.handler.join()
         self.feature_tracker.flush()
@@ -93,8 +94,9 @@ class Odometry:
         self._drain_swt()
 
     def _drain_swt(self):
-        """Apply any deferred subwindow result so final state reads see the
-        last solve (join has left no estimator work in flight)."""
+        """Apply any deferred result (subwindow solve or async keyframe
+        step) so final state reads see the last solve (join has left no
+        estimator work in flight)."""
         swt = self.frontend.swt
         if swt is not None:
             swt.drain_pending()

@@ -8,8 +8,11 @@ Behavioral reference: the reference's src/rdvio/src/sliding_window_tracker.cpp
 refine_window :226-337, slide_window :339-347, refine_subwindow :349-444,
 judge_track_status :557-718, update_track_status :720-769).
 
-Port of the JAX package's models/sliding_window_tracker.py, with the
-synchronous keyframe step only (`sliding_window_keyframe_async=False`). With
+Port of the JAX package's models/sliding_window_tracker.py. The steady
+keyframe step is synchronous (one fetch) by default; with
+`sliding_window_keyframe_async=True` it is dispatched with no blocking fetch
+and applied one frame later through the ordered FIFO of deferred results
+(`_keyframe_dispatch_async`). With
 `dist_mesh` set to a group of parallel/dist_ba.py (this process its rank 0),
 the keyframe step takes the unfused path and `refine_window` solves the
 window sharded over the group's ranks. PARSAC runs as the NumPy twins
@@ -80,10 +83,6 @@ class SlidingWindowTracker:
         chain in PRNGKey(config.random))."""
         import dataclasses
 
-        if getattr(config, "sliding_window_keyframe_async", False):
-            raise NotImplementedError(
-                "sliding_window_keyframe_async: the async keyframe step is "
-                "not ported (ROADMAP queue A, do not port)")
         self.map = keyframe_map
         self.config = config
         self.calib = calib
@@ -109,7 +108,7 @@ class SlidingWindowTracker:
         # prior produced by the fused keyframe-tail program, consumed by the
         # matching slide_window() call
         self._pending_prior: Optional[F.PriorFactor] = None
-        # deferred subwindow results: FIFO of (AsyncFetch, apply_fn).
+        # deferred results: FIFO of (AsyncFetch, apply_fn, is_keyframe).
         # The per-frame subframe solve is dispatched + async-fetched; the
         # HOST mirror is refreshed opportunistically (drain_pending applies
         # completed fetches in order, blocking only to bound the queue at
@@ -122,8 +121,9 @@ class SlidingWindowTracker:
         # the keyframe path force-drains first (block=True).
         self._pending_subs = []
         # (FrameStates on device, {frame_id: slot}) of the last subwindow
-        # solve; reset at every keyframe step (whose synchronous fetch
-        # refreshes the host mirror exactly)
+        # solve; reset at every synchronous keyframe step (whose fetch
+        # refreshes the host mirror exactly), set to the window solve's
+        # states by an async one
         self._dev_sub = None
         self.m_th = 3.0  # adaptive epipolar threshold (px)
         self.gumbel_source = None
@@ -751,6 +751,21 @@ class SlidingWindowTracker:
             frames, frames_by_id, require_valid=False, pending_ids=pending_ids
         )
 
+        # the async step needs a live device chain for the localize anchor
+        # at the subframe solve's shape (caps_fast.W rows). Without one (the
+        # first steady keyframe; a keyframe right after a keyframe, whose
+        # chain holds the window's caps.W rows) it falls through to the
+        # synchronous step, as the JAX package does (there a caps.W chain
+        # would compile another program); at those points the host mirror
+        # is exact already
+        if (self.config.sliding_window_keyframe_async
+                and self._dev_sub is not None
+                and self._dev_sub[0].q.shape[0] == self.caps_fast.W):
+            return self._keyframe_dispatch_async(
+                spec_loc, frame_j, pending, pending_ids, spec_w, tracks_v,
+                spec_m, frames_by_id,
+            )
+
         with T.time("swt.kf.dispatch"):
             res, res_loc, lm_w, valid_dev, ok_dev, tri_dev, new_prior = (
                 builders.solve_keyframe_fused(
@@ -760,39 +775,94 @@ class SlidingWindowTracker:
                     max_iterations=self.config.solver_iteration_limit,
                 )
             )
-        s = res.states
-        sl = res_loc.states
         with T.time("swt.kf.fetch"):
-            (q, p, v, bg, ba_, invd_h, lq, lp, lv, lbg, lba,
-             valid_h, ok_h, tri_h) = fetch(
-                (s.q, s.p, s.v, s.bg, s.ba, res.inv_depth,
-                 sl.q, sl.p, sl.v, sl.bg, sl.ba, valid_dev, ok_dev, tri_dev)
-            )
-        # localize result (frame_j may be a subframe outside the window)
-        frame_j.q, frame_j.p, frame_j.v = lq[0], lp[0], lv[0]
-        frame_j.bg, frame_j.ba = lbg[0], lba[0]
-        # window states + optimized inverse depths (vectorized store writes)
-        for i, f in enumerate(spec_w.frames):
-            f.q, f.p, f.v, f.bg, f.ba = q[i], p[i], v[i], bg[i], ba_[i]
+            tree = fetch(builders.keyframe_transfer_tree(
+                res, res_loc, valid_dev, ok_dev, tri_dev))
+        self._apply_kf_states(tree, frame_j, spec_w.frames)
         self._apply_kf_track_results(
-            lm_w, invd_h, pending, pending_ids, ok_h, tri_h,
-            tracks_v, valid_h,
+            lm_w, tree[5], pending, pending_ids, tree[12], tree[13],
+            tracks_v, tree[11],
         )
         self._pending_prior = new_prior  # consumed by slide_window
 
+    @staticmethod
+    def _apply_kf_states(tree, frame_j, window_frames):
+        """The keyframe step's fetched states onto the host frames: the
+        localize result (frame_j may be a subframe outside the window), then
+        the window states."""
+        q, p, v, bg, ba_, _, lq, lp, lv, lbg, lba = tree[:11]
+        frame_j.q, frame_j.p, frame_j.v = lq[0], lp[0], lv[0]
+        frame_j.bg, frame_j.ba = lbg[0], lba[0]
+        for i, f in enumerate(window_frames):
+            f.q, f.p, f.v, f.bg, f.ba = q[i], p[i], v[i], bg[i], ba_[i]
+
+    def _keyframe_dispatch_async(self, spec_loc, frame_j, pending,
+                                 pending_ids, spec_w, tracks_v, spec_m,
+                                 frames_by_id):
+        """The async keyframe step: one dispatch, no blocking fetch. The
+        localize anchor chains from the previous subwindow solve's device
+        states; the results come back through the same ordered FIFO as the
+        subframe path's, so the host mirror (window states, track flags, the
+        window slide) is a fixed count of frames stale, never
+        timing-dependent. The device chain continues from the keyframe
+        solve's window states. Returns True: track() skips
+        `_finish_keyframe`, whose slide runs in the deferred apply."""
+        prev_states, slot_of = self._dev_sub
+        anchor_i = spec_loc.imu_prior[0][0]
+        lip = slot_of.get(anchor_i.id, -1)
+        with T.time("swt.kf.dispatch"):
+            res, lm_w, transfer, new_prior = builders.solve_keyframe_fused_async(
+                spec_loc, pending, spec_w, tracks_v, spec_m, frames_by_id,
+                self.calib, self.caps, caps_loc=self.caps_fast,
+                dtype=self._window_dtype, loc_dtype=self._fast_dtype,
+                max_iterations=self.config.solver_iteration_limit,
+                prev_states=prev_states, loc_ip_prev=lip,
+            )
+        self._pending_prior = new_prior
+        self._dev_sub = (res.states, {f.id: i for i, f in enumerate(spec_w.frames)})
+        window_frames = list(spec_w.frames)
+        # pinned at dispatch: the slide count (when the apply runs, the next
+        # frame is attached to the map already, and the size-based loop
+        # would slide one keyframe too many) and the track pool (tracks born
+        # before the apply must not take this solve's validation verdicts)
+        n_slide = max(0, self.map.frame_num - self.config.sliding_window_size)
+        pool_tids = np.fromiter(self.map.tracks, np.int64, len(self.map.tracks))
+        fut = fetch_async(transfer)
+
+        def apply_fn(tree):
+            self._apply_kf_states(tree, frame_j, window_frames)
+            self._apply_kf_track_results(
+                lm_w, tree[5], pending, pending_ids, tree[12], tree[13],
+                tracks_v, tree[11], pool_tids=pool_tids,
+            )
+            with T.time("swt.marginalize"):
+                self.slide_window(count=n_slide)
+
+        self._pending_subs.append((fut, apply_fn, True))
+        return True
+
     def _apply_kf_track_results(self, lm_w, invd_h, pending, pending_ids,
-                                ok_h, tri_h, tracks_v, valid_h):
+                                ok_h, tri_h, tracks_v, valid_h,
+                                pool_tids=None):
         """Vectorized host application of the fused keyframe step's track
         outcomes: optimized inverse depths, pending-track triangulation
         results (mirror track_landmark :299-309), and landmark validation
-        side effects (mirror _validate_landmarks / reference :304-336)."""
+        side effects (mirror _validate_landmarks / reference :304-336).
+
+        pool_tids: the track pool when the step was dispatched (default: the
+        pool now). The async keyframe step applies one frame later, when
+        tracks born at the next frame exist already: the pool-wide "not
+        valid => trash" sweep must not condemn them (they were never in
+        this solve), and every row is resolved again from its tid, because
+        rows of tracks erased since may have been reused."""
         from rd_vio_tpu_torch.models.map import (
             TB_STATIC, TB_TRASH, TB_TRIANGULATED, TB_VALID,
         )
 
         m = self.map
         st = m.store
-        pool_tids = np.fromiter(m.tracks, np.int64, len(m.tracks))
+        if pool_tids is None:
+            pool_tids = np.fromiter(m.tracks, np.int64, len(m.tracks))
         # window inverse depths (non-pending opt tracks)
         if lm_w:
             tids_w = np.fromiter(lm_w.keys(), np.int64, len(lm_w))
@@ -823,7 +893,7 @@ class SlidingWindowTracker:
             rbad = rows_p[~ok & live_p]
             st.inv_depth[rbad] = -1.0
             st.flags[rbad] &= ~(TB_TRIANGULATED | TB_VALID)
-        # validation side effects over the track pool
+        # validation side effects over the dispatch-time pool
         all_rows = st.rows_of(np.asarray(pool_tids, np.int64))
         all_rows = all_rows[all_rows >= 0]
         fl = st.flags[all_rows]
@@ -880,12 +950,21 @@ class SlidingWindowTracker:
         self._pending_prior = new_prior  # consumed by slide_window
 
     # ------------------------------------------------------------------
-    def slide_window(self):
+    def slide_window(self, count: Optional[int] = None):
         """Marginalize oldest keyframes while the window is oversized
         (reference :339-347). The first marginalization may already have run
-        inside the fused keyframe tail (its prior is pending)."""
+        inside the fused keyframe tail (its prior is pending).
+
+        count: the exact number of keyframes to marginalize. The async
+        keyframe step slides in its deferred apply, when the next frame is
+        attached to the map already and the size-based loop would pop one
+        keyframe too many; the count pinned at dispatch keeps the
+        synchronous step's slide."""
         m = self.map
-        while m.frame_num > self.config.sliding_window_size:
+        while (m.frame_num > self.config.sliding_window_size
+               if count is None else count > 0):
+            if count is not None:
+                count -= 1
             victim = m.get_frame(0)
             for sub in victim.subframes:
                 m.untrack_frame(sub)
@@ -1171,26 +1250,31 @@ class SlidingWindowTracker:
         self._pending_subs.append((
             fetch_async(builders.result_transfer_tree(res)),
             lambda tree: builders.apply_result_np(tree, spec, lm_slot),
+            False,
         ))
 
     def drain_pending(self, block: bool = True):
-        """Refresh the host mirror from deferred subwindow results, applying
-        them strictly in dispatch order.
+        """Refresh the host mirror from deferred results, applying them
+        strictly in dispatch order.
 
         block=True (keyframe path, checkpointing, final state reads) waits
         for every in-flight result — afterwards the host mirror is exact.
         block=False (the per-frame path) keeps at most
-        `sliding_window_fifo_depth` results in flight, applying the oldest
-        (waiting if needed) beyond that, so the host mirror is
+        `sliding_window_fifo_depth` subframe results in flight, applying the
+        oldest (waiting if needed) beyond that, so the host mirror is
         deterministically stale by a fixed count, never timing-dependent (a
         completion-based fast path would make trajectories irreproducible).
-        Solve correctness does not depend on this mirror — the device chain
-        carries the fresh states (_dev_sub)."""
-        depth = getattr(self.config, "sliding_window_fifo_depth", 2)
+        A pending keyframe apply (the async keyframe step) is always
+        applied, even as the only entry: its track flags and window slide
+        feed the next keyframe decision, and its fetch has had a frame to
+        land. Solve correctness does not depend on this mirror — the device
+        chain carries the fresh states (_dev_sub)."""
+        depth = self.config.sliding_window_fifo_depth
         while self._pending_subs:
-            if not block and len(self._pending_subs) <= depth:
+            if (not block and len(self._pending_subs) <= depth
+                    and not self._pending_subs[0][2]):
                 return
-            fut, apply_fn = self._pending_subs.pop(0)
+            fut, apply_fn, _ = self._pending_subs.pop(0)
             apply_fn(fut.wait())
 
     # ------------------------------------------------------------------

@@ -3,6 +3,7 @@
     JAX_PLATFORMS=cpu python scripts/jax_ate_reference.py [n_frames] [--device-parsac] [--out FILE]
     JAX_PLATFORMS=cpu python scripts/jax_ate_reference.py --lockstep [n_ticks] [--out FILE]
     JAX_PLATFORMS=cpu python scripts/jax_ate_reference.py --euroc [n_frames] [--out FILE]
+    JAX_PLATFORMS=cpu python scripts/jax_ate_reference.py --async [n_frames] [--out FILE]
 
 Runs `rd_vio_tpu.models.odometry.Odometry` synchronously (threaded=False) with
 the JaxImageBackend over the first `n_frames` (default 160) frames of
@@ -53,6 +54,22 @@ layout's ground truth, then `ate_rmse`; a synchronous run's first N frames
 are the run with max_frames=N), the tracked estimates and the fused
 keyframe steps so far. chip_smoke.py's phase I runs the least N past the
 third fused keyframe step and holds the port's ATE against that line.
+
+`--async` runs the async keyframe step instead: `Odometry` synchronously
+with the perfect-match `SyntheticBackend` (bench.py's phase 2 backend) over
+the first `n_frames` (default 160) frames of the phase-1 sequence, with
+`make_config(light=False)`, `camera_intrinsic = seq.K_mat` and
+`sliding_window_keyframe_async = True`, and the same Caps. For every prefix
+of N frames it prints the ATE so far, the tracked frames, the async
+keyframe dispatches (`_keyframe_dispatch_async` calls) and the synchronous
+fused steps the gate fell through to (`KF_FUSED_COUNT` less the
+dispatches), the ids of the frames that were keyframes after any frame so
+far (the frames of `swt.map.frames`, by index), the window size
+(`map.frame_num`) and the most it has been. A last line gives the frame of
+the third async dispatch and `k_frames`, that frame's index + 2 (the least
+count whose run also applies the third dispatch's deferred results);
+chip_smoke.py's phase K runs that many frames and holds the port to that
+line.
 """
 
 from __future__ import annotations
@@ -216,9 +233,77 @@ def euroc(argv):
     return 0
 
 
+def async_keyframe(argv):
+    from rd_vio_tpu.models.feature_tracker import SyntheticBackend
+
+    i = argv.index("--async")
+    n_frames = int(argv[i + 1]) if len(argv) > i + 1 and not argv[i + 1].startswith("-") \
+        else 160
+    out = argv[argv.index("--out") + 1] if "--out" in argv else None
+    seq = synthetic.generate(duration=8.0, n_landmarks=1200, max_keypoints=150,
+                             excitation=0.05)
+    cfg = make_config(seq.K_mat)
+    cfg.sliding_window_keyframe_async = True
+    odo = Odometry(cfg, SyntheticBackend(seq), caps=CAPS, threaded=False)
+    index_of = {round(t, 6): k for k, t in enumerate(seq.t_frame)}
+    gt_by_t = {round(t, 6): p for t, p in zip(seq.t_frame, seq.p_wb)}
+    events = sorted([(t, 1, k) for k, t in enumerate(seq.t_imu)]
+                    + [(t, 0, k) for k, t in enumerate(seq.t_frame[:n_frames])])
+    dispatches, keyframes, est_t, est_p, rows = [], set(), [], [], []
+    hooked, max_frame_num = [], 0
+    builders.KF_FUSED_COUNT.n = 0
+    t0 = time.perf_counter()
+    for t, kind, k in events:
+        if kind == 1:
+            odo.add_motion(t, seq.gyro[k], seq.accel[k])
+            continue
+        odo.add_frame(t, k)
+        swt = odo.frontend.swt
+        if swt is not None and swt not in hooked:
+            hooked.append(swt)
+
+            def counted(*a, _orig=swt._keyframe_dispatch_async, **kw):
+                dispatches.append(len(rows))
+                return _orig(*a, **kw)
+
+            swt._keyframe_dispatch_async = counted
+        if swt is not None:
+            keyframes.update(index_of[round(f.t, 6)] for f in swt.map.frames)
+            max_frame_num = max(max_frame_num, swt.map.frame_num)
+        if odo.state() == 1:
+            ls = odo.handler.get_latest_state()
+            if ls is not None and (not est_t or ls[0] != est_t[-1]):
+                est_t.append(ls[0])
+                est_p.append(ls[2])
+        ate = None
+        if len(est_p) >= 3:
+            gt = np.stack([gt_by_t[round(tt, 6)] for tt in est_t])
+            ate = float(ate_rmse(np.asarray(est_p), gt))
+        rows.append({"n": len(rows) + 1, "state": odo.state(), "tracked": len(est_p),
+                     "first_tracked_frame": (index_of[round(est_t[0], 6)] if est_t else None),
+                     "async_dispatches": len(dispatches),
+                     "sync_fused": builders.KF_FUSED_COUNT.n - len(dispatches),
+                     "dispatch_frames": list(dispatches), "keyframes": sorted(keyframes),
+                     "frame_num": None if swt is None else swt.map.frame_num,
+                     "max_frame_num": max_frame_num, "ate_m": ate,
+                     "wall_s": round(time.perf_counter() - t0, 1)})
+        print(json.dumps(rows[-1]), flush=True)
+    odo.close()
+    third = dispatches[2] if len(dispatches) >= 3 else None
+    print(json.dumps({"wall_s": time.perf_counter() - t0, "frames": len(rows),
+                      "third_async_dispatch_frame": third,
+                      "k_frames": None if third is None else third + 2}), flush=True)
+    if out:
+        with open(out, "w") as fh:
+            json.dump(rows, fh)
+    return 0
+
+
 def main(argv):
     if "--lockstep" in argv:
         return lockstep(argv)
+    if "--async" in argv:
+        return async_keyframe(argv)
     if "--euroc" in argv:
         return euroc(argv)
     n_frames = int(argv[0]) if argv and not argv[0].startswith("-") else 160

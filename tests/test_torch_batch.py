@@ -40,7 +40,6 @@ keyframe flushes would not fit this module's time budget.
 
 import dataclasses
 import pickle
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import jax
@@ -51,7 +50,7 @@ from rd_vio_tpu.models.feature_tracker import SyntheticBackend as SyntheticBacke
 from rd_vio_tpu.models.odometry import Odometry as OdometryJ
 from rd_vio_tpu.utils import batch_eval as batch_eval_j
 from tests.test_torch_builders import CAPS, PIXEL_NOISE, make_config, same_prior, up64
-from tests.test_torch_image import IN_CHILD, child, jax_side  # noqa: F401
+from tests.test_torch_image import IN_CHILD, child, file_output, jax_ref, jax_side  # noqa: F401
 
 if IN_CHILD:  # the port loads only where the checks run (test_torch_image)
     import torch
@@ -87,9 +86,8 @@ def _stack(trees):
     return jax.tree_util.tree_map(lambda *a: np.stack(a), *trees)
 
 
-def record_jax_batch(path):
-    """The JAX run (see the module docstring); its records pickled to
-    `path`."""
+def _jax_inputs():
+    """The JAX run's sequence and config."""
     seq = synth_j.generate(duration=DURATION_S, n_landmarks=1200, max_keypoints=150,
                            pixel_noise=PIXEL_NOISE, seed=648)
     cfg = make_config(seq.K_mat)
@@ -97,6 +95,13 @@ def record_jax_batch(path):
     # program shapes as the default window's, and the first fused keyframe
     # step a few keyframes after the initialization
     cfg.sliding_window_size = 4
+    return seq, cfg
+
+
+def record_jax_batch(path):
+    """The JAX run (see the module docstring); its records pickled to
+    `path`."""
+    seq, cfg = _jax_inputs()
     odo = OdometryJ(cfg, SyntheticBackendJ(seq), caps=builders_j.Caps(**CAPS))
     rec, saved = {}, {}
 
@@ -409,13 +414,17 @@ def types_calib(tree):
 def test_batched_programs_match_rows_and_jax(child, jax_side, tmp_path):
     path, sub_path = str(tmp_path / "jax_batch.pkl"), str(tmp_path / "jax_sub.pkl")
     child(int, 0)  # the child starts here, before jax_side sets its environment
-    jax_side(record_jax_batch, path)
+    record = jax_ref(jax_side, "batch_record", (*_jax_inputs(), CAPS), file_output,
+                     record_jax_batch, path)()
+    with open(path, "wb") as fh:
+        fh.write(record)
     # the JAX batched program and the dispatcher's checks (which need only
     # the record) run at once, each in its own process
-    with ThreadPoolExecutor(max_workers=1) as ex:
-        jax_sub = ex.submit(jax_side, run_jax_batched_sub, path, sub_path)
-        child(_check_dispatcher, path)
-        jax_sub.result()
+    jax_sub = jax_ref(jax_side, "batch_sub", record, file_output, run_jax_batched_sub, path,
+                      sub_path)
+    child(_check_dispatcher, path)
+    with open(sub_path, "wb") as fh:
+        fh.write(jax_sub())
     child(_check_sub, path, sub_path)
 
 

@@ -30,7 +30,7 @@ from rd_vio_tpu.datasets import synthetic as synth_j
 from rd_vio_tpu.models import builders as builders_j
 from rd_vio_tpu.models.feature_tracker import SyntheticBackend as SyntheticBackendJ
 from rd_vio_tpu.models.odometry import Odometry as OdometryJ
-from tests.test_torch_image import IN_CHILD, child, jax_side  # noqa: F401
+from tests.test_torch_image import IN_CHILD, child, file_output, jax_ref, jax_side  # noqa: F401
 
 if IN_CHILD:  # the port loads only where the checks run (test_torch_image)
     import torch
@@ -110,8 +110,7 @@ def spec_ids(spec):
 def record_jax_run(path):
     """The JAX run: records as described in the module docstring, pickled
     to `path`."""
-    seq = synth_j.generate(duration=DURATION_S, n_landmarks=1200, max_keypoints=150,
-                           pixel_noise=PIXEL_NOISE, seed=648)
+    seq = _jax_seq()
     cfg = make_config(seq.K_mat)
     caps = builders_j.Caps(**CAPS)
     odo = OdometryJ(cfg, SyntheticBackendJ(seq), caps=caps)
@@ -141,10 +140,27 @@ def record_jax_run(path):
                 arrays=jax.device_get(arrays), lm_w=dict(lm_w),
                 empty_validation=builders_j._assemble_validation_ref(
                     [], frames_by_id, {}, {}, calib, 2 * caps_.L, caps_.O))
-        return saved["solve_keyframe_fused"](
+        out = saved["solve_keyframe_fused"](
             spec_loc, pending, spec_w, tracks_v, spec_m, frames_by_id, calib, caps_,
             caps_loc=caps_loc, dtype=dtype, loc_dtype=loc_dtype,
             max_iterations=max_iterations)
+        if "keyframe_async" not in rec:
+            # the async step on the same keyframe, in f64, its localize
+            # anchor chained from the last subwindow solve's states (after
+            # the synchronous step, so that the recorded first calls stay
+            # that step's)
+            swt = odo.frontend.swt
+            prev, slot_of = swt._dev_sub
+            prev = jax.tree_util.tree_map(lambda a: a.astype(np.float64), prev)
+            lip = slot_of.get(spec_loc.imu_prior[0][0].id, -1)
+            res, lm_w, transfer, prior = builders_j.solve_keyframe_fused_async(
+                spec_loc, pending, spec_w, tracks_v, spec_m, frames_by_id, calib, caps_,
+                caps_loc=caps_loc, dtype=np.float64, loc_dtype=np.float64,
+                max_iterations=max_iterations, prev_states=prev, loc_ip_prev=lip)
+            rec["keyframe_async"] = jax.device_get(dict(
+                prev=prev, lip=lip, iterations=res.iterations, lm_w=dict(lm_w),
+                transfer=transfer, prior=prior))
+        return out
 
     for name in RECORDED + ("solve_keyframe_fused",):
         saved[name] = getattr(builders_j, name)
@@ -272,12 +288,9 @@ def _check_host(rec):
                 np.testing.assert_array_equal(x, y)
 
     # the builders' assembly on the recorded specs
-    specs = {k: convert.ba_spec_from(kh[k], m, "cpu") for k in ("spec_loc", "spec_w", "spec_m")}
-    tr = m.tracks
+    args, kw = _keyframe_args(rec)
     arrays, lm_w = builders_t.assemble_keyframe_fused(
-        specs["spec_loc"], [tr[i] for i in kh["pending"]], specs["spec_w"],
-        [tr[i] for i in kh["tracks_v"]], specs["spec_m"], frames_by_id, calib, caps,
-        caps_loc=builders_t.Caps(**kh["caps_loc"]), dtype=np.dtype(cfg.window_solver_dtype),
+        *args, caps_loc=kw["caps_loc"], dtype=np.dtype(cfg.window_solver_dtype),
         loc_dtype=np.dtype(cfg.fast_solver_dtype))
     assert lm_w == kh["lm_w"]
 
@@ -306,6 +319,52 @@ def _check_host(rec):
     # no validation tracks: the same arrays as the JAX package's track-major twin
     same(builders_t._assemble_validation([], frames_by_id, {}, {}, calib, 2 * caps.L, caps.O),
          kh["empty_validation"], "empty validation")
+
+
+def _keyframe_args(rec):
+    """The recorded first fused keyframe step's arguments, on the port's
+    copy of the map: (spec_loc, pending, spec_w, tracks_v, spec_m,
+    frames_by_id, calib, caps), {"caps_loc": ...}."""
+    kh = rec["keyframe_host"]
+    m = convert.map_from(kh["map"])
+    calib = convert.calib_from(rec["calib_host"], "cpu")
+    specs = {k: convert.ba_spec_from(kh[k], m, "cpu") for k in ("spec_loc", "spec_w", "spec_m")}
+    tr = m.tracks
+    frames_by_id = {f.id: f for f in m.all_frames()}
+    return ((specs["spec_loc"], [tr[i] for i in kh["pending"]], specs["spec_w"],
+             [tr[i] for i in kh["tracks_v"]], specs["spec_m"], frames_by_id, calib,
+             builders_t.Caps(**CAPS)), {"caps_loc": builders_t.Caps(**kh["caps_loc"])})
+
+
+def _check_async(rec):
+    """`solve_keyframe_fused_async` with prev_states on both sides, in f64,
+    on the recorded first fused keyframe step (the port's on its own
+    assembly of the copied map, which _check_host holds equal to the JAX
+    package's): the window solve's accepted steps equal, every state of the
+    transfer tuple and the inverse depths within close64's 1e-9, the
+    validation and triangulation verdicts equal, the new prior within
+    same_prior's 1e-9 (fused_keyframe's f64 bounds)."""
+    ka = rec["keyframe_async"]
+    args, kw = _keyframe_args(rec)
+    builders_t.PROGRAM_STATS.pop("fused_keyframe_async", None)
+    n_kf = builders_t.KF_FUSED_COUNT.n
+    res, lm_w, transfer, prior = builders_t.solve_keyframe_fused_async(
+        *args, **kw, dtype=np.float64, loc_dtype=np.float64, max_iterations=rec["iterations"],
+        prev_states=convert.frame_states_from(ka["prev"], "cpu"), loc_ip_prev=ka["lip"])
+    assert builders_t.KF_FUSED_COUNT.n == n_kf + 1
+    assert builders_t.PROGRAM_STATS["fused_keyframe_async"]["calls"] == 1
+    assert lm_w == ka["lm_w"]
+    assert int(res.iterations) == int(ka["iterations"])
+    assert len(transfer) == len(ka["transfer"]) == 14
+    names = [f"window {n}" for n in FrameStates._fields] + ["inv_depth"] + [
+        f"localize {n}" for n in FrameStates._fields]
+    for name, a, b in zip(names, ka["transfer"][:11], transfer[:11]):
+        close64(a, b, f"keyframe async {name}")
+    vj, okj, tij = ka["transfer"][11:]
+    np.testing.assert_array_equal(vj, _np(transfer[11]))
+    np.testing.assert_array_equal(okj, _np(transfer[12]))
+    close64(np.asarray(tij)[okj], _np(transfer[13])[okj], "keyframe async tri_invd")
+    same_prior(ka["prior"], prior, "keyframe async prior")
 
 
 def _check_programs(rec):
@@ -403,9 +462,19 @@ def _check(path):
         rec = pickle.load(fh)
     _check_host(rec)
     _check_programs(rec)
+    _check_async(rec)
+
+
+def _jax_seq():
+    return synth_j.generate(duration=DURATION_S, n_landmarks=1200, max_keypoints=150,
+                            pixel_noise=PIXEL_NOISE, seed=648)
 
 
 def test_builders_match_jax(child, jax_side, tmp_path):
     path = str(tmp_path / "jax_builders.pkl")
-    jax_side(record_jax_run, path)
+    seq = _jax_seq()
+    data = jax_ref(jax_side, "builders", (seq, make_config(seq.K_mat), CAPS), file_output,
+                   record_jax_run, path)()
+    with open(path, "wb") as fh:
+        fh.write(data)
     child(_check, path)

@@ -7,8 +7,9 @@ threaded with the device PARSAC, which is also held against the CPU; the
 batched LM solve of the lockstep runtime, its CUDA-graph replay against its
 eager run and its rows against single solves, a short lockstep run on
 the card, and the undistortion's remap against its CPU run; the
-landmark-sharded solve over NCCL and over gloo ranks on the card, and a
-tracker checkpoint's round trip on the card with bicubic intensity. Every
+landmark-sharded solve over NCCL and over gloo ranks on the card, a
+tracker checkpoint's round trip on the card with bicubic intensity, and
+the async keyframe step on the card against the CPU. Every
 test is marked `cuda` and skips where there is no CUDA device; this file
 imports no JAX, so on a GPU machine without JAX it runs as
 
@@ -441,6 +442,98 @@ def test_sharded_solve_on_the_card(dev):
         ref = ba.solve_ba(s0, invd_s, pb_s, max_iterations=30)
         assert s.p.device.type == "cuda" and bool(torch.isfinite(invd_d).all())
         assert float((s.p - ref.states.p).abs().max()) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_async_keyframe_step_on_the_card_matches_the_cpu(dev):
+    """The async keyframe step (sliding_window_keyframe_async) on the card:
+    Odometry with tests/test_torch_builders.py's inputs (its sequence with
+    0.5 px of pixel noise, its config and Caps) and the async flag, on the
+    card up to its first async dispatch, whose inputs (the chain's previous
+    states included) and outputs builders.CAPTURED_KEYFRAME keeps
+    (CAPTURE_KEYFRAME = "chained"); the step run again on the CPU on those
+    inputs, with chip_smoke.py's keyframe bounds: the f32 window solve's
+    accepted steps within 4 and positions within 1e-4 m, the validation
+    verdicts equal on all but 5 tracks, and the CPU's marginalization at the
+    card's solution within 1e-6 relative of the card's prior in its
+    information S^T S. The priors each at its own solution are printed with
+    the solutions' differences, not bounded: on these noisy inputs they
+    differ by 2e-3-7e-3 relative with equal verdicts (PERF.md, PR 9), where
+    phase F's noise-free ones agree within 1e-5. Then close() applies the
+    pending step, leaving the window's host states equal to the card's
+    solve."""
+    import torch
+
+    from rd_vio_tpu_torch.config import Config
+    from rd_vio_tpu_torch.datasets import synthetic
+    from rd_vio_tpu_torch.models import builders
+    from rd_vio_tpu_torch.models.feature_tracker import SyntheticBackend
+    from rd_vio_tpu_torch.models.odometry import Odometry
+
+    seq = synthetic.generate(duration=2.6, n_landmarks=1200, max_keypoints=150,
+                             pixel_noise=0.5, seed=648)
+    cfg = Config()
+    cfg.camera_intrinsic = seq.K_mat
+    cfg.ransac_hypotheses = 128
+    cfg.sliding_window_keyframe_async = True
+    odo = Odometry(cfg, SyntheticBackend(seq),
+                   caps=builders.Caps(W=13, L=256, O=1536, Fi=16, R=128, IMU=64, IMU_KF=384))
+    events = sorted([(t, 1, i) for i, t in enumerate(seq.t_imu)]
+                    + [(t, 0, i) for i, t in enumerate(seq.t_frame)])
+    builders.CAPTURE_KEYFRAME, builders.CAPTURED_KEYFRAME = "chained", None
+    try:
+        for t, kind, i in events:
+            if kind == 1:
+                odo.add_motion(t, seq.gyro[i], seq.accel[i])
+            else:
+                odo.add_frame(t, i)
+            if builders.CAPTURED_KEYFRAME is not None:
+                break
+    finally:
+        builders.CAPTURE_KEYFRAME = False
+    assert builders.CAPTURED_KEYFRAME is not None, "no async keyframe dispatch"
+    (a, prior, calib, it, prev, lip), out_g = builders.CAPTURED_KEYFRAME
+    res_g, _, v_g, ok_g, tri_g, prior_g = out_g
+    assert res_g.states.p.device.type == "cuda" and prev.p.device.type == "cuda"
+    cpu = lambda tree: torch.utils._pytree.tree_map(lambda x: x.cpu(), tree)  # noqa: E731
+    res_c, _, v_c, ok_c, _, prior_own = builders.run_keyframe_fused(
+        a, cpu(prior), cpu(calib), it, prev=cpu(prev), loc_ip_prev=lip)
+    m_idx = [torch.from_numpy(a[k]) for k in ("mlm_vti", "mlm_from_w", "mlm_tri")]
+    prior_same = builders.marginalize_tail(
+        *cpu((res_g.states, res_g.inv_depth, v_g, tri_g, ok_g)), a["pa_m"], *m_idx,
+        cpu(prior), cpu(calib))
+    info = lambda p: (p.sqrt_inv_cov.cpu().double().mT  # noqa: E731
+                      @ p.sqrt_inv_cov.cpu().double())
+    rel = lambda p: float((info(prior_g) - info(p)).abs().max()  # noqa: E731
+                          / info(p).abs().max())
+    diff = lambda x, y: float((x.cpu().double() - y.double()).abs().max())  # noqa: E731
+    sg, sc = res_g.states, res_c.states
+    readings = dict(
+        accepted_steps=(int(res_g.iterations), int(res_c.iterations)),
+        max_position_diff_m=diff(sg.p, sc.p), max_velocity_diff=diff(sg.v, sc.v),
+        max_gyro_bias_diff=diff(sg.bg, sc.bg), max_accel_bias_diff=diff(sg.ba, sc.ba),
+        max_inv_depth_diff=diff(res_g.inv_depth, res_c.inv_depth),
+        validation_differs=int((v_g.cpu() != v_c).sum()),
+        tri_ok_differs=int((ok_g.cpu() != ok_c).sum()),
+        prior_rel_same_solution=rel(prior_same), prior_rel_own_solution=rel(prior_own))
+    print("async keyframe step, card against CPU:", readings)
+    assert abs(readings["accepted_steps"][0] - readings["accepted_steps"][1]) <= 4
+    assert readings["max_position_diff_m"] <= 1e-4
+    assert readings["validation_differs"] <= 5
+    assert readings["prior_rel_same_solution"] <= 1e-6
+
+    swt = odo.frontend.swt
+    assert swt._pending_subs and swt._pending_subs[-1][2], "no keyframe apply pending"
+    tree, slot_of = swt._pending_subs[-1][0].wait(), dict(swt._dev_sub[1])
+    odo.close()
+    assert not swt._pending_subs
+    by_id = {f.id: f for f in swt.map.frames}
+    left = [fid for fid in slot_of if fid in by_id]
+    assert left and swt.map.frame_num <= cfg.sliding_window_size + 1
+    for fid in left:
+        for k, name in enumerate(("q", "p", "v", "bg", "ba")):
+            np.testing.assert_array_equal(np.asarray(getattr(by_id[fid], name)),
+                                          tree[k][slot_of[fid]])
 
 
 @pytest.mark.cuda

@@ -28,7 +28,7 @@ import time
 import numpy as np
 import jax
 
-from tests.test_torch_image import IN_CHILD, child, jax_side  # noqa: F401
+from tests.test_torch_image import IN_CHILD, child, jax_ref, jax_side  # noqa: F401
 
 if IN_CHILD:  # the port loads only where the checks run (test_torch_image)
     import torch
@@ -184,7 +184,8 @@ def _check_relayout_and_sharded_solve(prob, j):
 
 def test_relayout_and_sharded_solve_match_jax(child, jax_side):
     prob = child(_port_problem)
-    child(_check_relayout_and_sharded_solve, prob, jax_side(_jax_relayout_and_solve, *prob))
+    want = jax_ref(jax_side, "dist_ba", prob, _jax_relayout_and_solve, *prob)()
+    child(_check_relayout_and_sharded_solve, prob, want)
 
 
 # a rank that joins, takes rank 0's first command and then dies, or never

@@ -8,23 +8,27 @@ The same problem goes to both packages: the JAX package builds it, and
 kept). The port runs on the CPU. Sizes are those of the JAX package's entry
 point (`__graft_entry__._build_problem`: W=6, L=64, O=256); of the large JAX
 programs the checks compile one for the whole linearization, one `solve_ba`
-per dtype and one `marginalize_frame0`. The tolerance of each comparison
-stands beside it; "relative" means relative to the largest magnitude of the
-reference array.
+per dtype and one `marginalize_frame0`. The JAX package's problem and its
+outputs of those programs (`_jax_window_problem`, `_jax_estimator_outputs`)
+come from the child, or from their stored outputs (tests/torch_ref,
+`jax_ref`, keyed by the inputs they were given). The tolerance of each
+comparison stands beside it; "relative" means relative to the largest
+magnitude of the reference array.
 """
 
 import functools
+import types
 
 import numpy as np
 
-from tests.test_torch_image import IN_CHILD, child  # noqa: F401
+from rd_vio_tpu.datasets import synthetic as synth_j
+from tests.test_torch_image import IN_CHILD, child, jax_ref  # noqa: F401
 
 if IN_CHILD:  # the port loads only where the checks run (test_torch_image)
     import jax
     import jax.numpy as jnp
     import torch
 
-    from rd_vio_tpu.datasets import synthetic as synth_j
     from rd_vio_tpu.datasets import synthetic_problems as sp_j
     from rd_vio_tpu.estimation import ba as ba_j
     from rd_vio_tpu.estimation import factors as F_j
@@ -206,7 +210,7 @@ def _check_triangulate():
     close(xt, pts[1], 1e-8, "triangulate_homogeneous against the truth")
 
 
-def _check_residuals():
+def _check_residuals(problem):
     # each residual on seeded inputs, batched by vmap in both packages: 1e-12
     rng = np.random.default_rng(5)
     n = 16
@@ -237,7 +241,7 @@ def _check_residuals():
          lambda *a: F_t.rotation_prior_residual(*a, ext_t, _t(sic2)),
          (q_t, q_r, z_ref, z_tgt), 0, "rotation_prior_residual")
 
-    imu = _window_problem()[2].imu  # an integrated interval of the window
+    imu = problem[2].imu  # an integrated interval of the window
     dj = jax.tree_util.tree_map(lambda a: a[0], imu.delta)
     sic15 = imu.sqrt_inv_cov[0]
     dt = convert.preint_delta_from(dj, "cpu")
@@ -262,20 +266,22 @@ def _check_residuals():
     close(b, a, 1e-12, "prior_residual")
 
 
-@functools.cache
-def _window_problem():
+def _seq():
+    return synth_j.generate(duration=4.0, n_landmarks=300, max_keypoints=40)
+
+
+def _jax_window_problem():
     """The entry point's window (JAX package), as NumPy."""
-    seq = synth_j.generate(duration=4.0, n_landmarks=300, max_keypoints=40)
     states, invd, pb, n_lm, n_obs = sp_j.build_window_problem(
-        seq, f0=10, W=W, L_max=64, O_max=256)
+        _seq(), f0=10, W=W, L_max=64, O_max=256)
     return _np(states), np.asarray(invd), _np(pb), n_lm, n_obs
 
 
-def _check_problem_build():
+def _check_problem_build(problem):
     # the port's build_window_problem against the JAX one on the same
     # sequence: index and mask arrays equal, floats (IMU factors integrated
     # by each package's scan) within 1e-12 relative, every dtype the same
-    sj, ij, pj, n_lm, n_obs = _window_problem()
+    sj, ij, pj, n_lm, n_obs = problem
     seq = synth_t.generate(duration=4.0, n_landmarks=300, max_keypoints=40)
     st, it, pt, n_lm_t, n_obs_t = sp_t.build_window_problem(
         seq, f0=10, W=W, L_max=64, O_max=256, device="cpu")
@@ -296,11 +302,11 @@ def _check_problem_build():
         np.testing.assert_array_equal(b.numpy(), a)
 
 
-def _full_problem(seed=3):
+def _full_problem(problem, seed):
     """The entry point's window with frame 0 fixed, every factor group
     populated (8 reprojection priors, 2 IMU priors, 8 rotation priors, one
     slot of each left invalid) and seeded perturbed states, as NumPy."""
-    sj, ij, pj, _, _ = _window_problem()
+    sj, ij, pj, _, _ = problem
     rng = np.random.default_rng(seed)
     d = rng.standard_normal((W, ES)) * 0.01
     d[:, 9:] *= 0.1
@@ -341,11 +347,66 @@ def _linearize_all_j():
     return jax.jit(functools.partial(_linearize_all, ba_j))
 
 
-def _check_linearization():
+def _perturbed_solve_inputs(problem):
+    """The entry point's window from the port's `perturbed_start` (test_ba.py's
+    perturbation, frame 0 fixed), as NumPy for both packages."""
+    sj, ij, pj, _, _ = problem
+    s0, invd0, pb = sp_t.perturbed_start(convert.frame_states_from(sj, "cpu"), _t(ij),
+                                         convert.ba_problem_from(pj, "cpu"))
+    fixed0 = pb.opt_pose.numpy()
+    assert not fixed0[0] and fixed0[1:].all()
+    return (sj, st_j.FrameStates(*map(np.asarray, s0)), invd0.numpy(),
+            pj._replace(opt_pose=fixed0, opt_motion=fixed0.copy()))
+
+
+def _solve_problem(inputs, dtype):
+    """The solve's inputs for `dtype`: in f32 the 1e15 gauge prior turns
+    the rounding of q_lin^-1 q on the fixed frame 0 into a constant cost term
+    of up to ~1e14, which ends the JAX solve after one step on the
+    relative-decrease test; its size depends on whether the arithmetic fuses
+    multiply-adds, so it is not comparable between the packages. Frame 0 is
+    held by the masks, so the f32 comparison solves without the prior."""
+    sgt, s0, invd0, pb = inputs["solve"]
+    if dtype == "float32":
+        pb = pb._replace(prior_valid=np.asarray(False))
+    return sgt, s0, invd0, pb
+
+
+def _estimator_inputs(problem):
+    """The inputs of the linearization, Cholesky-failure, solve and
+    marginalization checks, as NumPy."""
+    return dict(lin=_full_problem(problem, 3), marg=_full_problem(problem, 11),
+                solve=_perturbed_solve_inputs(problem))
+
+
+def _jax_estimator_outputs(inputs):
+    """The JAX package's outputs for those checks, as NumPy."""
+    s, invd, pb = inputs["lin"]
+    lin = _np(_linearize_all_j()(s, invd, pb))
+    H, g, Hll, Hcl, bl, cmask = lin[6]
+    args = (H, g, Hll, Hcl, bl, cmask, np.float64(1e-4), pb.opt_lm)
+    chol = [_np(ba_j.solve_normal_system(*map(jnp.asarray, (sign * H, *args[1:]))))
+            for sign in (-1.0, 1.0)]
+    solve = {}
+    for dtype in ("float64", "float32"):
+        _, s0, invd0, pbs = _solve_problem(inputs, dtype)
+        r = ba_j.solve_ba(*_cast_floats((st_j.FrameStates(*map(jnp.asarray, s0)),
+                                         jnp.asarray(invd0), pbs), getattr(jnp, dtype)),
+                          max_iterations=30)
+        solve[dtype] = _np(dict(iterations=r.iterations, cost=r.cost,
+                                initial_cost=r.initial_cost, states=r.states,
+                                inv_depth=r.inv_depth))
+    s, invd, pb = inputs["marg"]
+    marg = _np(mg_j.marginalize_frame0(st_j.FrameStates(*map(jnp.asarray, s)),
+                                       jnp.asarray(invd), jax.tree_util.tree_map(jnp.asarray, pb)))
+    return dict(lin=lin, chol=chol, solve=solve, marg=marg)
+
+
+def _check_linearization(inputs, want):
     # every linearize_* residual and Jacobian, build_normal_system's
     # (H, g, Hll, Hcl, bl, cmask) and compute_cost: f64, 1e-9 relative
-    s, invd, pb = _full_problem()
-    out_j = _linearize_all_j()(s, invd, pb)
+    s, invd, pb = inputs["lin"]
+    out_j = want["lin"]
     out_t = _linearize_all(ba_t, convert.frame_states_from(s, "cpu"), _t(invd),
                            convert.ba_problem_from(pb, "cpu"))
     names = ["reprojection (r, Jc, Jl)", "reproj_prior (r, Jc)", "imu_prior (r, Jc)",
@@ -358,50 +419,29 @@ def _check_linearization():
     close(out_t[-1], out_j[-1], 1e-9, "compute_cost")
 
 
-def _check_cholesky_failure():
+def _check_cholesky_failure(inputs, want):
     # a reduced system that is not positive definite: JAX's Cholesky gives
     # NaNs, the port's cholesky_ex a failure code; both take a zero camera
     # step and the same landmark step (1e-9 relative)
-    s, invd, pb = _full_problem()
-    H, g, Hll, Hcl, bl, cmask = map(np.asarray, _linearize_all_j()(s, invd, pb)[6])
+    pb = inputs["lin"][2]
+    H, g, Hll, Hcl, bl, cmask = map(np.asarray, want["lin"][6])
     H = -H  # negative definite on the free columns
     args = (H, g, Hll, Hcl, bl, cmask, np.float64(1e-4), pb.opt_lm)
-    dc_j, dl_j = ba_j.solve_normal_system(*map(jnp.asarray, args))
+    dc_j, dl_j = want["chol"][0]
     dc_t, dl_t = ba_t.solve_normal_system(*map(_t, args))
     assert not np.asarray(dc_j).any() and not dc_t.any()
     assert np.abs(np.asarray(dl_j)).max() > 0
     close(dl_t, dl_j, 1e-9, "landmark step after a failed Cholesky")
     # and a positive definite one: the same step in both (1e-9 relative)
     args = (-H, *args[1:])
-    for a, b in zip(ba_j.solve_normal_system(*map(jnp.asarray, args)),
-                    ba_t.solve_normal_system(*map(_t, args))):
+    for a, b in zip(want["chol"][1], ba_t.solve_normal_system(*map(_t, args))):
         close(b, a, 1e-9, "solve_normal_system")
 
 
-def _perturbed_solve_inputs():
-    """The entry point's window from the port's `perturbed_start` (test_ba.py's
-    perturbation, frame 0 fixed), as NumPy for both packages."""
-    sj, ij, pj, _, _ = _window_problem()
-    s0, invd0, pb = sp_t.perturbed_start(convert.frame_states_from(sj, "cpu"), _t(ij),
-                                         convert.ba_problem_from(pj, "cpu"))
-    fixed0 = pb.opt_pose.numpy()
-    assert not fixed0[0] and fixed0[1:].all()
-    return sj, _np(s0), invd0.numpy(), pj._replace(opt_pose=fixed0, opt_motion=fixed0.copy())
-
-
-def _check_solve(dtype):
-    sgt, s0, invd0, pb = _perturbed_solve_inputs()
-    if dtype == "float32":
-        # In f32 the 1e15 gauge prior turns the rounding of q_lin^-1 q on the
-        # fixed frame 0 into a constant cost term of up to ~1e14, which ends
-        # the JAX solve after one step on the relative-decrease test; its
-        # size depends on whether the arithmetic fuses multiply-adds, so it
-        # is not comparable between the packages. Frame 0 is held by the
-        # masks, so the f32 comparison solves without the prior.
-        pb = pb._replace(prior_valid=np.asarray(False))
-    rj = ba_j.solve_ba(*_cast_floats((st_j.FrameStates(*map(jnp.asarray, s0)),
-                                      jnp.asarray(invd0), pb), getattr(jnp, dtype)),
-                       max_iterations=30)
+def _check_solve(dtype, inputs, want):
+    # (the inputs of `dtype`: _solve_problem)
+    sgt, s0, invd0, pb = _solve_problem(inputs, dtype)
+    rj = types.SimpleNamespace(**want["solve"][dtype])
     rt = ba_t.solve_ba(*cast_floats((convert.frame_states_from(s0, "cpu"), _t(invd0),
                                      convert.ba_problem_from(pb, "cpu")),
                                     getattr(torch, dtype)), max_iterations=30)
@@ -433,12 +473,11 @@ def _check_solve(dtype):
     return it_j, it_t
 
 
-def _check_marginalization():
+def _check_marginalization(inputs, want):
     # S^T S and S^T infovec (S's eigenvector signs are arbitrary): 1e-9
     # relative; the shifted linearization points exactly
-    s, invd, pb = _full_problem(seed=11)
-    pj = mg_j.marginalize_frame0(st_j.FrameStates(*map(jnp.asarray, s)), jnp.asarray(invd),
-                                 jax.tree_util.tree_map(jnp.asarray, pb))
+    s, invd, pb = inputs["marg"]
+    pj = want["marg"]
     pt = mg_t.marginalize_frame0(convert.frame_states_from(s, "cpu"), _t(invd),
                                  convert.ba_problem_from(pb, "cpu"))
     Sj, ivj = np.asarray(pj.sqrt_inv_cov), np.asarray(pj.infovec)
@@ -451,13 +490,16 @@ def _check_marginalization():
 
 
 def test_estimator_matches_jax(child):
+    problem = jax_ref(child, "estimation_problem", (_seq(), W, 64, 256), _jax_window_problem)()
     child(_check_lie_and_state)
     child(_check_preintegration)
     child(_check_triangulate)
-    child(_check_residuals)
-    child(_check_problem_build)
-    child(_check_linearization)
-    child(_check_cholesky_failure)
-    assert child(_check_solve, "float64")[0] >= 3
-    child(_check_solve, "float32")
-    child(_check_marginalization)
+    child(_check_residuals, problem)
+    child(_check_problem_build, problem)
+    inputs = child(_estimator_inputs, problem)
+    want = jax_ref(child, "estimation", inputs, _jax_estimator_outputs, inputs)()
+    child(_check_linearization, inputs, want)
+    child(_check_cholesky_failure, inputs, want)
+    assert child(_check_solve, "float64", inputs, want)[0] >= 3
+    child(_check_solve, "float32", inputs, want)
+    child(_check_marginalization, inputs, want)

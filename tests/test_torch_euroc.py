@@ -16,11 +16,9 @@ persistent compilation cache (without it the JAX run took 114 s instead of
 at once.
 """
 
-from concurrent.futures import ThreadPoolExecutor
-
 import numpy as np
 
-from tests.test_torch_image import child, jax_side  # noqa: F401
+from tests.test_torch_image import child, jax_ref, jax_side  # noqa: F401
 
 SETTINGS = {
     "feature_tracker": {"min_keypoint_distance": 12.0, "max_keypoint_detection": 120},
@@ -84,6 +82,19 @@ def run_port(paths):
     return out
 
 
+def _layout_files(root):
+    """Every file of the layout under `root`, by its path there: bytes."""
+    import os
+
+    out = {}
+    for d, _, files in os.walk(root):
+        for name in files:
+            path = os.path.join(d, name)
+            with open(path, "rb") as fh:
+                out[os.path.relpath(path, root)] = fh.read()
+    return out
+
+
 def test_euroc_slice_matches_jax(child, jax_side, tmp_path):
     """The same frames reach preprocess (the first undistorted frame equal
     bit for bit); both runs collect estimates at the same frame times, >= 5;
@@ -91,13 +102,11 @@ def test_euroc_slice_matches_jax(child, jax_side, tmp_path):
     against the layout's ground truth) within max(2 J, J + 0.01 m) of the
     JAX run's J."""
     child(int, 0)  # the child starts before jax_side sets its environment
-    with ThreadPoolExecutor(max_workers=1) as ex:
-        started = ex.submit(jax_side, int, 0)
-        paths = write_layout(str(tmp_path))
-        started.result()
-        fut = ex.submit(jax_side, run_jax, paths)
-        port = child(run_port, paths)
-        jax = fut.result()
+    paths = write_layout(str(tmp_path))
+    result = jax_ref(jax_side, "euroc", (_layout_files(str(tmp_path)), N_FRAMES), run_jax,
+                     paths)
+    port = child(run_port, paths)
+    jax = result()
     assert port["distortion_flag"] and jax["distortion_flag"]
     assert port["first_frame"].dtype == np.float32
     np.testing.assert_array_equal(port["first_frame"], jax["first_frame"])

@@ -5,8 +5,11 @@ port's counterpart (rd_vio_tpu_torch, on the CPU), with the tolerance stated
 beside each comparison.
 
 This module also holds what every tests/test_torch_*.py module shares:
-`child`, which runs a module's checks in a spawned process, `jax_side`,
-which runs the JAX half of a whole-pipeline check in another, and
+`child`, which runs the checks in a spawned process (one per test process,
+shared by its modules; `child2` is a second one for two port runs at
+once), `jax_side`, which runs the JAX half of a whole-pipeline check in
+another, `jax_ref`, which gives a JAX half's stored output
+(tests/torch_ref) instead of running it when its key matches, and
 `rendered_frames`. Only those processes import torch and the port, and
 only they compile the checks' JAX programs, so the test runner's own
 processes stay as they are without the port: jaxlib's CPU backend crashes intermittently
@@ -62,6 +65,19 @@ if IN_CHILD:
 
 
 CHILD_TIMEOUT_S = 600
+# When set, the path of a file to which every call into a spawned process
+# appends one JSON line: the test, the process ("child" or "jax_side"), the
+# function, and the wall-clock times of its submission, its start and end
+# in the process, and its return (scripts/torch_test_times.py reads them).
+TIMING_LOG = "RDVIO_TEST_TIMING_LOG"
+
+
+def _timed(fn, *args):
+    import time
+
+    t0 = time.time()
+    out = fn(*args)
+    return t0, time.time(), out
 
 
 def _spawned(env=None):
@@ -70,14 +86,19 @@ def _spawned(env=None):
     call). call.submit(fn, *args) starts the call and returns a function
     that waits for its result (with the same time limit), so that the
     caller can do other work meanwhile."""
+    import time
+
     ctx = multiprocessing.get_context("spawn")
     pool = ProcessPoolExecutor(max_workers=1, mp_context=ctx)
+    log = os.environ.get(TIMING_LOG)
+    kind = "jax_side" if env and KEEP_JAX_CACHE in env else "child"
 
     def submit(fn, *args):
         saved = {k: os.environ.get(k) for k in env or {}}
         os.environ.update(env or {})
+        t_submit = time.time()
         try:
-            fut = pool.submit(fn, *args)
+            fut = pool.submit(_timed, fn, *args) if log else pool.submit(fn, *args)
         finally:
             for k, v in saved.items():
                 if v is None:
@@ -87,11 +108,24 @@ def _spawned(env=None):
 
         def result():
             try:
-                return fut.result(timeout=CHILD_TIMEOUT_S)
+                out = fut.result(timeout=CHILD_TIMEOUT_S)
             except TimeoutError:
                 for proc in list(pool._processes.values()):
                     proc.kill()
                 raise
+            if not log:
+                return out
+            import json
+
+            t_start, t_end, out = out
+            with open(log, "a") as f:
+                f.write(json.dumps(dict(
+                    test=os.environ.get("PYTEST_CURRENT_TEST", "").split(" ")[0],
+                    proc=kind, pool=f"{os.getpid()}:{id(pool)}",
+                    fn=getattr(fn, "__name__", str(fn)),
+                    submit=t_submit, start=t_start, end=t_end,
+                    returned=time.time())) + "\n")
+            return out
 
         return result
 
@@ -102,20 +136,38 @@ def _spawned(env=None):
     return pool, call
 
 
+_CHILD = []  # the (pool, call) of this test process's child process
+_CHILD2 = []  # the same of its second child (`child2`)
+_JAX_SIDE = []  # the (pool, call) of this test process's jax_side process
+
+
+def _shared(box, env=None):
+    """The call of the process kept in `box`, started anew if there is none
+    or it was killed."""
+    if not box or box[0][0]._broken:
+        box[:] = [_spawned(env)]
+    return box[0][1]
+
+
 @pytest.fixture(scope="module")
 def child():
-    """call(fn, *args): fn(*args) in this module's spawned child process.
-    An assertion that fails there fails the calling test. A call that takes
-    longer than CHILD_TIMEOUT_S kills the child and fails the test, so a
-    hung child costs one test, not the whole run's time limit."""
-    pool, call = _spawned()
-    try:
-        yield call
-    finally:
-        pool.shutdown(wait=True, cancel_futures=True)
+    """call(fn, *args): fn(*args) in this test process's spawned child
+    process. An assertion that fails there fails the calling test. A call
+    that takes longer than CHILD_TIMEOUT_S kills the child and fails the
+    test, so a hung child costs one test, not the whole run's time limit.
+    One child serves every module of a test process (it ends when that
+    process exits; a killed child is replaced), so that each module does not
+    pay its start and its imports of jax, torch and the port: a check that
+    reads a module-level counter or capture of the port sets it first."""
+    return _shared(_CHILD)
 
 
-_JAX_SIDE = []  # the (pool, call) of this test process's jax_side process
+@pytest.fixture(scope="module")
+def child2():
+    """A second process like `child`'s, for a module whose checks run two
+    port runs at once (tests/test_torch_odometry.py,
+    tests/test_torch_initializer.py)."""
+    return _shared(_CHILD2)
 
 
 @pytest.fixture(scope="module")
@@ -130,9 +182,201 @@ def jax_side():
     programs was seen to abort in the cache write. One such process serves
     every module of a test process (it ends when that process exits), so
     that the modules share the programs it has loaded."""
-    if not _JAX_SIDE or _JAX_SIDE[0][0]._broken:  # a killed process is not reused
-        _JAX_SIDE[:] = [_spawned({KEEP_JAX_CACHE: "1"})]
-    return _JAX_SIDE[0][1]
+    return _shared(_JAX_SIDE, {KEEP_JAX_CACHE: "1"})
+
+
+# Stored outputs of the JAX halves (`jax_ref`): one lzma-compressed pickle
+# per reference, {"key": ..., "out": ...}. The JAX package is frozen, so a
+# stored output whose key matches is the output the JAX run would give.
+# scripts/build_torch_ref.py rebuilds them (it runs the tests with
+# WRITE_REF set, which stores every reference computed live).
+REF_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_ref")
+WRITE_REF = "RDVIO_TEST_WRITE_REF"
+
+
+@functools.cache
+def _jax_package_digest():
+    """sha256 of every .py and .cpp file of rd_vio_tpu/, path and bytes, and
+    of the versions of jax, jaxlib and numpy."""
+    import glob
+    import hashlib
+
+    import jax
+    import jaxlib
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    h = hashlib.sha256()
+    for pat in ("*.py", "*.cpp"):
+        for path in sorted(glob.glob(os.path.join(root, "rd_vio_tpu", "**", pat),
+                                     recursive=True)):
+            h.update(os.path.relpath(path, root).encode())
+            with open(path, "rb") as fh:
+                h.update(fh.read())
+    h.update(f"jax {jax.__version__} jaxlib {jaxlib.__version__} "
+             f"numpy {np.__version__}".encode())
+    return h.hexdigest()
+
+
+def _digest(obj, h):
+    """Feed `obj` into hashlib object `h`: arrays by dtype, shape and bytes,
+    containers, dataclasses and plain objects by their fields in a fixed
+    order, anything else by its repr."""
+    import dataclasses
+
+    if isinstance(obj, np.ndarray) or isinstance(obj, np.generic):
+        a = np.ascontiguousarray(obj)
+        h.update(f"array {a.dtype} {a.shape}".encode())
+        h.update(a.tobytes() if a.dtype != object else repr(a.tolist()).encode())
+    elif isinstance(obj, dict):
+        h.update(b"dict")
+        for k in sorted(obj, key=repr):
+            h.update(repr(k).encode())
+            _digest(obj[k], h)
+    elif isinstance(obj, (list, tuple)):
+        h.update(f"{type(obj).__name__} {len(obj)}".encode())
+        for x in obj:
+            _digest(x, h)
+    elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        h.update(type(obj).__name__.encode())
+        _digest({f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}, h)
+    elif hasattr(obj, "__dict__") and not callable(obj):
+        h.update(type(obj).__name__.encode())
+        _digest(vars(obj), h)
+    else:
+        h.update(repr(obj).encode())
+
+
+def _closure_source(fns):
+    """The source of each function or class of `fns` and, transitively, of every function and
+    class of a test module (tests/*.py) that their code names, with the
+    functions' default values and the values of the plain constants their
+    code names (numbers, strings, tuples, dicts): what the JAX half runs, helpers imported from other test modules
+    included. Names are qualified names, not module names (a test module is
+    imported both as `tests.<name>` and as `<name>`)."""
+    import inspect
+    import types
+
+    tests_dir = os.path.dirname(os.path.abspath(__file__))
+    seen, parts = set(), []
+
+    def names(code):
+        yield from code.co_names
+        for c in code.co_consts:
+            if isinstance(c, types.CodeType):
+                yield from names(c)
+
+    def visit(obj):
+        if not (inspect.isfunction(obj) or inspect.isclass(obj)) or obj in seen:
+            return
+        try:
+            in_tests = os.path.dirname(inspect.getsourcefile(obj)) == tests_dir
+        except TypeError:
+            in_tests = False
+        if not in_tests:
+            return
+        seen.add(obj)
+        parts.append(f"{obj.__qualname__}\n{inspect.getsource(obj)}")
+        if inspect.isfunction(obj):  # default values are bound at definition
+            parts.append(f"defaults {obj.__defaults__!r} {obj.__kwdefaults__!r}")
+            codes, glb = [obj.__code__], obj.__globals__
+        else:
+            codes = [f.__code__ for f in vars(obj).values() if inspect.isfunction(f)]
+            glb = vars(inspect.getmodule(obj))
+        for code in codes:
+            for n in sorted(set(names(code))):
+                v = glb.get(n)
+                if inspect.isfunction(v) or inspect.isclass(v):
+                    visit(v)
+                elif isinstance(v, (bool, int, float, str, tuple, dict)):
+                    parts.append(f"{n} = {v!r}")
+
+    for f in fns:
+        visit(f)
+    return "\n".join(parts)
+
+
+def ref_source_digest(fns):
+    """The part of a stored output's key that its JAX half's code fixes:
+    sha256 of the JAX package's sources and the versions
+    (`_jax_package_digest`) and of `_closure_source(fns)`."""
+    import hashlib
+
+    h = hashlib.sha256(_jax_package_digest().encode())
+    h.update(_closure_source(fns).encode())
+    return h.hexdigest()
+
+
+def ref_key(name, src, inputs):
+    """The key of a stored JAX output: sha256 of its name, of `src`
+    (`ref_source_digest`) and of `inputs`, the check's input arrays as built
+    (`_digest`)."""
+    import hashlib
+
+    h = hashlib.sha256(f"{name} {src}".encode())
+    _digest(inputs, h)
+    return h.hexdigest()
+
+
+def _qualified(f):
+    return f"{f.__module__.split('.')[-1]}:{f.__qualname__}"
+
+
+def load_ref(name):
+    """The record stored for `name` ({"key", "src", "fns", "out"}), or None."""
+    import lzma
+    import pickle
+
+    path = os.path.join(REF_DIR, f"{name}.pkl.xz")
+    if not os.path.exists(path):
+        return None
+    with lzma.open(path, "rb") as fh:
+        return pickle.load(fh)
+
+
+def jax_ref(call, name, inputs, fn, *args):
+    """Start the JAX half fn(*args) and return a function that waits for
+    its output, as call.submit does (`call`: jax_side). When
+    tests/torch_ref/<name>.pkl.xz holds an output under the same key
+    (`ref_key` of `ref_source_digest` of fn and the functions among args,
+    and of `inputs`), that output is returned instead and nothing runs; a
+    missing key runs fn live, and a different one too, with a warning (a
+    stored output whose code part is stale also fails
+    test_stored_jax_outputs_are_current); with WRITE_REF set a live output
+    is stored under its key."""
+    import lzma
+    import pickle
+    import warnings
+
+    fns = [f for f in (fn, *args) if callable(f) and f is not file_output]
+    src = ref_source_digest(fns)
+    key = ref_key(name, src, inputs)
+    stored = load_ref(name)
+    if stored is not None:
+        if stored["key"] == key:
+            return lambda: stored["out"]
+        warnings.warn(f"tests/torch_ref/{name}.pkl.xz is stale (its "
+                      f"{'inputs' if stored.get('src') == src else 'code'} changed): the JAX "
+                      f"half runs live; rebuild it with scripts/build_torch_ref.py")
+    result = call.submit(fn, *args)
+
+    def live():
+        out = result()
+        if os.environ.get(WRITE_REF):
+            os.makedirs(REF_DIR, exist_ok=True)
+            with lzma.open(os.path.join(REF_DIR, f"{name}.pkl.xz"), "wb", preset=9) as fh:
+                pickle.dump({"key": key, "src": src, "fns": [_qualified(f) for f in fns],
+                             "out": out}, fh, protocol=4)
+        return out
+
+    return live
+
+
+def file_output(fn, *args):
+    """fn(*args), which writes its output to the path args[-1]; returns the
+    file's bytes (for `jax_ref` of a JAX half that writes a file)."""
+    fn(*args)
+    with open(args[-1], "rb") as fh:
+        return fh.read()
 
 
 def rendered_frames(n, size=(320, 240), seed=648):
@@ -229,3 +473,34 @@ def test_image_ops_match_jax(child):
     for preset in [0, 12]:
         child(_check_poisson_filter, preset)
     child(_check_gftt)
+
+
+def test_stored_jax_outputs_are_current():
+    """Every stored JAX output (tests/torch_ref) is current: the code part
+    of its key (`ref_source_digest` of the functions its record names, with
+    the JAX package's sources and the versions of jax, jaxlib and numpy) is
+    what this tree gives, so a change to a JAX half or to a helper it calls
+    fails here instead of quietly running that half live; and the stored
+    outputs take at most 5 MB."""
+    import glob
+    import importlib
+
+    paths = sorted(glob.glob(os.path.join(REF_DIR, "*.pkl.xz")))
+    assert paths, "no stored JAX outputs"
+    total = sum(os.path.getsize(p) for p in paths)
+    assert total <= 5 * 1024 * 1024, f"tests/torch_ref holds {total} bytes"
+    stale = []
+    for path in paths:
+        name = os.path.basename(path)[:-len(".pkl.xz")]
+        rec = load_ref(name)
+        fns = []
+        for q in rec["fns"]:
+            mod, qual = q.split(":")
+            obj = importlib.import_module(f"tests.{mod}")
+            for part in qual.split("."):
+                obj = getattr(obj, part)
+            fns.append(obj)
+        if ref_source_digest(fns) != rec["src"]:
+            stale.append(name)
+    assert not stale, (f"stale stored JAX outputs {stale}: rebuild them with "
+                       f"python scripts/build_torch_ref.py")

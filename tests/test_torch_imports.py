@@ -203,6 +203,7 @@ def _check_batch_runtime_defaults_to_the_card():
     cfgs = [ConfigT(), ConfigT()]
     assert inspect.signature(BatchedVIO).parameters["device"].default is None
     assert inspect.signature(run_sequences_lockstep).parameters["device"].default is None
+    builders_t.PROGRAM_STATS.clear()
     n_threads = threading.active_count()
     for kw in ({}, {"device": "cuda"}):
         try:

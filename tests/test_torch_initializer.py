@@ -27,7 +27,7 @@ from rd_vio_tpu.models.initializer import Initializer as InitializerJ
 from rd_vio_tpu.ops import epipolar as epi_j
 from rd_vio_tpu.ops import homography as homo_j
 from rd_vio_tpu.ops import ransac as ransac_j
-from tests.test_torch_image import IN_CHILD, child, jax_side  # noqa: F401
+from tests.test_torch_image import IN_CHILD, child, child2, jax_ref, jax_side  # noqa: F401
 
 if IN_CHILD:  # the port loads only where the checks run (test_torch_image)
     import torch
@@ -203,7 +203,13 @@ def _check_initializer(cfg_j, want):
     assert abs(got["tracks"] - want["tracks"]) <= 1
 
 
-def test_initializer_matches_jax(child, jax_side):
-    child(_check_ops)
-    cfg, want = jax_side(_jax_init)
+def test_initializer_matches_jax(child, child2, jax_side):
+    seq = synth_j.generate(duration=DURATION_S, n_landmarks=1200, max_keypoints=150, seed=648)
+    cfg = ConfigJ()
+    cfg.camera_intrinsic = seq.K_mat
+    cfg.ransac_hypotheses = 128
+    result = jax_ref(jax_side, "initializer", (seq, cfg, CAPS), _jax_init)
+    ops = child2.submit(_check_ops)  # the op checks run at once, in a second process
+    cfg, want = result()
     child(_check_initializer, cfg, want)
+    ops()

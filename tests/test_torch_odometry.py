@@ -23,6 +23,7 @@ tracker worker fail and holds the pipeline to surfacing that error.
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 
 from rd_vio_tpu.config import Config as ConfigJ
 from rd_vio_tpu.datasets import synthetic as synth_j
@@ -30,7 +31,7 @@ from rd_vio_tpu.models import builders as builders_j
 from rd_vio_tpu.models.feature_tracker import SyntheticBackend as SyntheticBackendJ
 from rd_vio_tpu.models.odometry import Odometry as OdometryJ
 from rd_vio_tpu.utils.trajectory import ate_rmse as ate_rmse_j
-from tests.test_torch_image import IN_CHILD, child, jax_side  # noqa: F401
+from tests.test_torch_image import IN_CHILD, child, child2, jax_ref, jax_side  # noqa: F401
 from tests.test_torch_initializer import JaxKeyNoise
 
 if IN_CHILD:  # the port loads only where the checks run (test_torch_image)
@@ -42,6 +43,22 @@ if IN_CHILD:  # the port loads only where the checks run (test_torch_image)
 
 CAPS = dict(W=13, L=256, O=1536, Fi=16, R=128, IMU=64, IMU_KF=384)
 DURATION_S = 2.3
+# The runs take the sequence's first N_FRAMES frames (it has 46). Both JAX
+# runs (host and device PARSAC) make a fused keyframe step once 38, 39, 40,
+# 41, 43 and 44 frames are in, and track from frame 36 on, one estimate per
+# frame. The checks exist for the keyframe steps (n_kf >= 1) and for an
+# SE3-aligned ATE with enough estimates to tell a bad trajectory from a good
+# one: 41 is the least count past the third step that gives the
+# synchronous run MIN_ESTIMATES (4 at 40 frames; 8 at 44, at twice the
+# port's time). The IMU samples after frame 40 run the fourth step.
+N_FRAMES = 41
+MIN_ESTIMATES = 5
+# The threaded port may start tracking up to THREADED_INIT_FRAMES later
+# than the JAX run (35 + 4 = 39) and then estimates every frame: both
+# threaded-check runs take THREADED_FRAMES frames, the least count that
+# leaves three frames to estimate (an SE3-aligned ATE) after the latest
+# start the check allows (JAX's run: 7 estimates).
+THREADED_FRAMES = 43
 ATE_BOUND_M = 0.05  # tests/test_e2e_synthetic.py's bound
 ATE_DIFF_M = 0.005
 # the threaded port against the synchronous JAX run
@@ -77,13 +94,21 @@ def make_config(K):
     return cfg
 
 
-def run(odo, seq, caps_mod):
-    """bench.py's event order; per frame the state, and once tracking the
-    latest state's (t, p) as bench.py collects them. Returns (states, est_t,
-    est_p, keyframe steps)."""
+def events_of(seq, n_frames):
+    """bench.py's event order over the first n_frames frames, with the IMU
+    samples up to 20 ms past the last one (the Handler runs a frame's work
+    when the samples after it arrive)."""
+    t_end = seq.t_frame[n_frames - 1] + 0.02
+    return sorted([(t, 1, i) for i, t in enumerate(seq.t_imu) if t <= t_end]
+                  + [(t, 0, i) for i, t in enumerate(seq.t_frame[:n_frames])])
+
+
+def run(odo, seq, caps_mod, n_frames=N_FRAMES):
+    """bench.py's event order over the first n_frames frames; per frame the
+    state, and once tracking the latest state's (t, p) as bench.py collects
+    them. Returns (states, est_t, est_p, keyframe steps)."""
     caps_mod.KF_FUSED_COUNT.n = 0
-    events = sorted([(t, 1, i) for i, t in enumerate(seq.t_imu)]
-                    + [(t, 0, i) for i, t in enumerate(seq.t_frame)])
+    events = events_of(seq, n_frames)
     states, est_t, est_p = [], [], []
     for t, kind, i in events:
         if kind == 1:
@@ -131,6 +156,7 @@ def _check_port(port, cfg_j, want):
     assert all(s == 1 for s in states[init:]), "the port lost tracking"
     assert abs(len(est_p) - want["tracked"]) <= 2, (len(est_p), want["tracked"])
     assert n_kf >= 1 and np.isfinite(est_p).all()
+    assert want["tracked"] >= MIN_ESTIMATES, want["tracked"]
     ate = _ate(seq, est_t, est_p, ate_rmse)
     assert ate < ATE_BOUND_M and want["ate"] < ATE_BOUND_M, (ate, want["ate"])
     assert abs(ate - want["ate"]) <= ATE_DIFF_M, (ate, want["ate"])
@@ -146,9 +172,26 @@ def _jax_run():
                      ate=_ate(seq, est_t, est_p, ate_rmse_j))
 
 
-def test_odometry_matches_jax(child, jax_side):
-    want = jax_side.submit(_jax_run)  # the JAX run goes on while the port's runs
-    child(_check_port, child(_port_run), *want())
+def _ref_inputs(device_parsac=False):
+    """What the JAX runs read: the sequence, the config and the Caps."""
+    seq = _seq()
+    cfg = make_config(seq.K_mat)
+    cfg.parsac_host_masks = not device_parsac
+    return seq, cfg, CAPS
+
+
+@pytest.fixture(scope="module")
+def port_runs(child, child2):
+    """The module's two port runs, started at once, each in a process of
+    its own: the synchronous one in the child, the threaded one in the
+    second child. Each test waits for its own."""
+    return {"sync": child.submit(_port_run), "threaded": child2.submit(_port_run_threaded)}
+
+
+def test_odometry_matches_jax(child, jax_side, port_runs):
+    # the JAX run (or its stored output) goes on while the port's runs
+    want = jax_ref(jax_side, "odometry", _ref_inputs(), _jax_run)
+    child(_check_port, port_runs["sync"](), *want())
 
 
 def _jax_run_device_parsac():
@@ -159,7 +202,7 @@ def _jax_run_device_parsac():
     cfg = make_config(seq.K_mat)
     cfg.parsac_host_masks = False
     odo = OdometryJ(cfg, SyntheticBackendJ(seq), caps=builders_j.Caps(**CAPS))
-    states, est_t, est_p, n_kf = run(odo, seq, builders_j)
+    states, est_t, est_p, n_kf = run(odo, seq, builders_j, THREADED_FRAMES)
     assert 1 in states and n_kf >= 1, (states, n_kf)
     first = int(np.flatnonzero(np.isclose(seq.t_frame, est_t[0]))[0])
     return cfg, dict(first=first, tracked=len(est_p), ate=_ate(seq, est_t, est_p, ate_rmse_j))
@@ -182,16 +225,14 @@ def _port_run_threaded():
 
     judged = swt_t.PARSAC_STATS["judge"]
     try:
-        events = sorted([(t, 1, i) for i, t in enumerate(seq.t_imu)]
-                        + [(t, 0, i) for i, t in enumerate(seq.t_frame)])
-        for t, kind, i in events:
+        for t, kind, i in events_of(seq, THREADED_FRAMES):
             if kind == 1:
                 odo.add_motion(t, seq.gyro[i], seq.accel[i])
             else:
                 odo.add_frame(t, i)
         odo.join()
         assert odo.healthy()
-        assert odo.handler.get_latest_state()[0] == seq.t_frame[-1]
+        assert odo.handler.get_latest_state()[0] == seq.t_frame[THREADED_FRAMES - 1]
     finally:
         odo.close()
     assert swt_t.PARSAC_STATS["judge"] > judged, "the device judge never ran"
@@ -209,7 +250,8 @@ def _check_port_threaded(published, cfg_j, want):
     est_t = np.array([t for t, _ in published])
     first = int(np.flatnonzero(np.isclose(seq.t_frame, est_t[0]))[0])
     assert abs(first - want["first"]) <= THREADED_INIT_FRAMES, (first, want["first"])
-    np.testing.assert_array_equal(est_t, seq.t_frame[first:])  # every frame after it
+    assert want["tracked"] >= MIN_ESTIMATES, want["tracked"]
+    np.testing.assert_array_equal(est_t, seq.t_frame[first:THREADED_FRAMES])  # every one after
     est_p = np.stack([p for _, p in published])
     assert np.isfinite(est_p).all()
     ate = _ate(seq, est_t, est_p, ate_rmse)
@@ -217,9 +259,10 @@ def _check_port_threaded(published, cfg_j, want):
     assert abs(ate - want["ate"]) <= THREADED_ATE_DIFF_M, (ate, want["ate"])
 
 
-def test_threaded_device_parsac_matches_jax(child, jax_side):
-    want = jax_side.submit(_jax_run_device_parsac)
-    child(_check_port_threaded, child(_port_run_threaded), *want())
+def test_threaded_device_parsac_matches_jax(child, jax_side, port_runs):
+    want = jax_ref(jax_side, "odometry_device_parsac", _ref_inputs(True),
+                   _jax_run_device_parsac)
+    child(_check_port_threaded, port_runs["threaded"](), *want())
 
 
 def _check_worker_failure():
