@@ -40,6 +40,7 @@ from torch.utils._pytree import tree_flatten, tree_map
 from rd_vio_tpu_torch.estimation import factors as F
 from rd_vio_tpu_torch.estimation.state import ES_SIZE, FrameStates, retract
 from rd_vio_tpu_torch.ops.lie import expmap, quat_mul
+from rd_vio_tpu_torch.utils.metrics import GLOBAL_TIMER as _T
 
 
 class BAProblem(NamedTuple):
@@ -589,7 +590,8 @@ def solve_ba_rows(states: FrameStates, inv_depth, pb: BAProblem,
     test has fired, and the loop reads the rows' stop flags once per
     iteration (one host sync) and ends when every row is done. Each row's
     result (accepted steps counted per row) is its single-row solve's;
-    ROW_ITERATIONS gets the iterations each row ran.
+    ROW_ITERATIONS gets the iterations each row ran. The loop (the
+    iterations and their stop-flag reads) runs inside the span `ba.rows.lm`.
 
     On CUDA (while ROW_GRAPHS is set) the iteration runs as a CUDA graph,
     captured at the first solve of each set of shapes: the same kernels on
@@ -611,19 +613,20 @@ def solve_ba_rows(states: FrameStates, inv_depth, pb: BAProblem,
         graph.load(c, pb)
     row_its, live_prev = [0] * N, [True] * N
     STATS.solves += 1
-    for _ in range(max_iterations):
-        STATS.iterations += 1
-        if graph is not None:
-            graph.replay()
-            c = graph.c
-        else:
-            c = _row_step(c, pb)
-        # the loop's one host sync per iteration: the rows' stop flags
-        done_h = c.done.cpu().tolist()
-        row_its = [n + 1 if live else n for n, live in zip(row_its, live_prev)]
-        live_prev = [not d for d in done_h]
-        if all(done_h):
-            break
+    with _T.time("ba.rows.lm"):
+        for _ in range(max_iterations):
+            STATS.iterations += 1
+            if graph is not None:
+                graph.replay()
+                c = graph.c
+            else:
+                c = _row_step(c, pb)
+            # the loop's one host sync per iteration: the rows' stop flags
+            done_h = c.done.cpu().tolist()
+            row_its = [n + 1 if live else n for n, live in zip(row_its, live_prev)]
+            live_prev = [not d for d in done_h]
+            if all(done_h):
+                break
     ROW_ITERATIONS.append(row_its)
     if graph is not None:  # the graph's tensors are overwritten by its next solve
         c = tree_map(torch.clone, c)

@@ -59,9 +59,10 @@ _stats_lock = threading.Lock()
 
 def _count(name: str, fn, *args, **kw):
     """fn(*args, **kw), its call and the LM iterations of its solves
-    counted under `name` in PROGRAM_STATS."""
+    counted under `name` in PROGRAM_STATS, inside the span `prog.<name>`."""
     s0, i0 = ba.STATS.solves, ba.STATS.iterations
-    out = fn(*args, **kw)
+    with _T.time(f"prog.{name}"):
+        out = fn(*args, **kw)
     with _stats_lock:
         st = PROGRAM_STATS[name]
         st["calls"] += 1

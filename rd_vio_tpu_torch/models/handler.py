@@ -245,7 +245,8 @@ class Handler:
         if self.threaded:
             self._ft_queue.put(frame)  # blocks when the pipeline is full
         else:
-            self.feature_tracker.track_frame(frame)
+            with T.time("handler.host_step"):
+                self.feature_tracker.track_frame(frame)
 
     # ------------------------------------------------------------------
     def predict_pose(self, t: float):

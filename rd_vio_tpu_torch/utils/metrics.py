@@ -1,34 +1,42 @@
-"""Structured per-frame metrics and stage timing.
+"""Stage timing: host spans and device spans.
 
 The reference only has scoped wall-clock debug timers and per-call latency
-prints (SURVEY.md §5 tracing). Here: a stage-latency ring buffer + JSONL
-emission of per-frame metrics (tracked keypoints, inlier ratios, solver
-iterations, stage timings), and context-manager timers.
+prints (SURVEY.md §5 tracing). Here: `StageTimer`, a bounded log of host
+spans placed on the clock that torch.profiler stamps its records on, and
+`DeviceStageTimer`, CUDA event pairs around the same kind of block.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
-import json
 import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Tuple
 
 
 class StageTimer:
-    """Per-stage wall-clock ring buffers (reference unique_timer.h analogue).
+    """Host spans (reference unique_timer.h analogue), always on.
+
+    Each `time(name)` block appends one record (name, thread, start_ns,
+    end_ns) to one log of at most `bound` records (the oldest go first).
+    start_ns and end_ns are `time.time_ns()`: torch.profiler (kineto) stamps
+    its host records and the device activities on that clock, so a span can
+    be laid over a device trace without conversion. `thread` is
+    `threading.get_ident()`, the pthread id by which the profiler's CUDA
+    runtime records name the launching thread (in their low 32 bits).
+    `samples` gives every logged call's seconds by name.
 
     `suppressed()` disables recording for the current thread. Threads may
     time spans at once (a threaded Odometry's two workers): each span's
-    start lives on its own thread's stack, and the ring buffers are written
-    and read under a lock."""
+    start lives on its own thread's stack, and the log is written and read
+    under a lock."""
 
     _tls = threading.local()
 
-    def __init__(self, window: int = 256):
-        self.window = window
-        self.samples: Dict[str, collections.deque] = {}
+    def __init__(self, bound: int = 1 << 16):
+        self.bound = bound
+        self._log: collections.deque = collections.deque(maxlen=bound)
         self._lock = threading.Lock()
 
     @classmethod
@@ -46,29 +54,37 @@ class StageTimer:
         if getattr(self._tls, "off", False):
             yield
             return
-        t0 = time.perf_counter()
+        t0 = time.time_ns()
         try:
             yield
         finally:
-            dt = time.perf_counter() - t0
+            t1 = time.time_ns()
             with self._lock:
-                self.samples.setdefault(
-                    stage, collections.deque(maxlen=self.window)
-                ).append(dt)
+                self._log.append((stage, threading.get_ident(), t0, t1))
+
+    def spans(self) -> List[Tuple[str, int, int, int]]:
+        """The log: (name, thread, start_ns, end_ns) in the order the spans
+        closed (an enclosing span after the spans inside it)."""
+        with self._lock:
+            return list(self._log)
+
+    @property
+    def samples(self) -> Dict[str, List[float]]:
+        """{name: [seconds of each logged call, oldest first]}."""
+        out: Dict[str, List[float]] = {}
+        for name, _, t0, t1 in self.spans():
+            out.setdefault(name, []).append((t1 - t0) * 1e-9)
+        return out
 
     def reset(self):
-        """Drop all recorded samples (bench phase boundaries)."""
+        """Drop all recorded spans (bench phase boundaries)."""
         with self._lock:
-            self.samples.clear()
+            self._log.clear()
 
     def stats(self) -> Dict[str, dict]:
-        with self._lock:
-            snapshot = {k: list(dq) for k, dq in self.samples.items()}
         out = {}
-        for k, dq in snapshot.items():
-            if not dq:
-                continue
-            xs = sorted(dq)
+        for k, xs in self.samples.items():
+            xs = sorted(xs)
             n = len(xs)
             out[k] = {
                 "n": n,
@@ -77,26 +93,6 @@ class StageTimer:
                 "p90_ms": 1e3 * xs[min(n - 1, int(n * 0.9))],
             }
         return out
-
-
-class MetricsLogger:
-    """JSONL per-frame metrics sink."""
-
-    def __init__(self, path: Optional[str] = None):
-        self.path = path
-        self._fh = open(path, "a") if path else None
-        self.latest: dict = {}
-
-    def log(self, **kv):
-        self.latest = kv
-        if self._fh:
-            self._fh.write(json.dumps(kv) + "\n")
-            self._fh.flush()
-
-    def close(self):
-        if self._fh:
-            self._fh.close()
-            self._fh = None
 
 
 class DeviceStageTimer:

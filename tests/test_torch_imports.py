@@ -229,7 +229,7 @@ def test_batch_runtime_defaults_to_the_card(child):
 
 def _check_counters_under_threads():
     """What a threaded Odometry's two workers write at once: StageTimer's
-    ring buffers, builders.PROGRAM_STATS (through _count) and the parsac
+    span log, builders.PROGRAM_STATS (through _count) and the parsac
     call counts. 12 threads (more than the cores) x 200 updates each with a
     1 us switch interval: no update is lost."""
     import threading
@@ -237,7 +237,7 @@ def _check_counters_under_threads():
     from rd_vio_tpu_torch.models import sliding_window_tracker as swt
     from rd_vio_tpu_torch.utils.metrics import StageTimer
 
-    timer = StageTimer(window=10 ** 6)
+    timer = StageTimer(bound=10 ** 6)
     builders_t.PROGRAM_STATS.pop("stress", None)
     judged = swt.PARSAC_STATS["judge"]
 
